@@ -4,8 +4,9 @@ H100 (Hopper, sm_90a).
 It mirrors the JAX package `repro` subpackage by subpackage and name by
 name, so each function has a counterpart a reader can find:
 
-* `repro_torch.core` — GEMM taxonomy, the scalar cost model and the
-  What/When/Where planner (scalar backend).
+* `repro_torch.core` — GEMM taxonomy, the scalar and batched cost
+  models, the sweep engine, the What/When/Where planner (backends
+  "vectorized", "pallas" and "scalar") and the design-space campaigns.
 * `repro_torch.quant` — INT8 weight quantization, the planner-gated
   linear route and the static `KernelPlanTable`.
 * `repro_torch.kernels` — hand-written Hopper kernels (CUDA C++ sources
@@ -13,6 +14,7 @@ name, so each function has a counterpart a reader can find:
   torch version of each.
 * `repro_torch.models` / `repro_torch.serving` — the dense decoder's
   decode step and the fixed-batch `ServeSession` over a `DecodeCore`.
+* `repro_torch.launch` — the campaign CLI.
 * `repro_torch.convert` — the JAX package's parameters as torch tensors.
 
 Entry points run on `"cuda"` unless the caller passes `device="cpu"`.

@@ -10,11 +10,18 @@ large M, K within reduction reach) run the hand-written INT8 GEMM kernel;
 memory-bound M=1 decode GEMMs stay on the standard path (the paper's
 "when NOT to CiM" takeaway).
 
-Backends: the port implements backend="scalar", the per-call Python cost
-model (the reference the JAX package's batched backends are pinned to by
-its parity tests and golden CSV).  "vectorized" and "pallas" are the
-batched sweep and its fused row kernel; they are not ported yet and raise
-NotImplementedError rather than silently running the scalar model.
+Backends (`decide` / `plan_workload` / `plan_workload_by_phase` accept
+backend="vectorized"|"pallas"|"scalar"):
+  * "vectorized" (default): the batched sweep engine (core/sweep.py) —
+    all GEMMs x configs x candidate mappings scored in one device pass
+    through vectorized.evaluate_flat, with an LRU result cache;
+  * "pallas": the same sweep with the CiM rows on the hand-written sweep
+    kernel (kernels/sweep_eval.py; CUDA C++ on the card);
+  * "scalar": the per-call Python cost model, the reference the batched
+    backends are held to.
+The batched backends run on `engine` when one is given, else on the
+default engine of `device` ("cuda" unless the caller passes "cpu").  All
+backends apply the same eligibility and "when" rules (`make_decision`).
 """
 from __future__ import annotations
 
@@ -33,22 +40,14 @@ DEFAULT_PRIMS = (ANALOG_6T, ANALOG_8T, DIGITAL_6T, DIGITAL_8T)
 
 
 PLANNER_BACKENDS = ("vectorized", "pallas", "scalar")
-# the batched backends arrive with the port of core/vectorized.py,
-# core/sweep.py and the sweep_eval kernel
-UNPORTED_BACKENDS = ("vectorized", "pallas")
 
 
 def _check_args(backend: str, order_mode: str) -> None:
-    """Shared argument validation: only the scalar backend runs here; the
-    batched ones raise instead of silently mapping to scalar."""
+    """Shared argument validation: every backend accepts exactly the same
+    (backend, order_mode) combinations."""
     if backend not in PLANNER_BACKENDS:
         raise ValueError(f"unknown planner backend {backend!r}; "
                          f"expected one of {PLANNER_BACKENDS}")
-    if backend in UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"planner backend {backend!r} is not ported yet (ROADMAP.md, "
-            f"port slice 2: core/vectorized.py, core/sweep.py and the "
-            f"sweep_eval kernel); use backend='scalar'")
     check_order_mode(order_mode)
 
 
@@ -122,10 +121,16 @@ def make_decision(gemm: GEMM, base: Metrics, options: dict,
 def decide(gemm: GEMM, configs: dict[str, CiMSystemConfig] | None = None,
            order_mode: str = "exact",
            throughput_floor: float = 0.5,
-           backend: str = "scalar") -> Decision:
-    """What/when/where for one GEMM through the scalar cost model."""
+           backend: str = "vectorized", engine=None,
+           device="cuda") -> Decision:
+    """What/when/where for one GEMM (batched backends on `engine`, else
+    on the default engine of `device`)."""
     _check_args(backend, order_mode)
     configs = configs or standard_configs()
+    if backend != "scalar":
+        from .sweep import decide_batched
+        return decide_batched(gemm, configs, order_mode, throughput_floor,
+                              engine=engine, backend=backend, device=device)
     base = evaluate_baseline(gemm)
     options = {name: evaluate(gemm, cfg, order_mode)
                for name, cfg in configs.items()}
@@ -135,9 +140,17 @@ def decide(gemm: GEMM, configs: dict[str, CiMSystemConfig] | None = None,
 def plan_workload(gemms: Iterable[GEMM],
                   configs: dict[str, CiMSystemConfig] | None = None,
                   order_mode: str = "exact",
-                  backend: str = "scalar") -> list[Decision]:
-    """Per-GEMM decisions for a whole workload (decide() per GEMM)."""
+                  backend: str = "vectorized", engine=None,
+                  device="cuda") -> list[Decision]:
+    """Per-GEMM decisions for a whole workload: one batched sweep (on
+    `engine`, else the default engine of `device`), or decide() per GEMM
+    for backend="scalar"."""
     _check_args(backend, order_mode)
+    if backend != "scalar":
+        from .sweep import plan_workload_batched
+        return plan_workload_batched(gemms, configs, order_mode,
+                                     engine=engine, backend=backend,
+                                     device=device)
     return [decide(g, configs, order_mode, backend=backend)
             for g in gemms]
 
@@ -145,14 +158,16 @@ def plan_workload(gemms: Iterable[GEMM],
 def plan_workload_by_phase(phase_gemms: dict,
                            configs: dict[str, CiMSystemConfig] | None = None,
                            order_mode: str = "exact",
-                           backend: str = "scalar"
+                           backend: str = "vectorized", engine=None,
+                           device="cuda"
                            ) -> dict[str, list[Decision]]:
     """Per-phase what/when/where plans: {"prefill": [...], "decode": [...]}.
 
     The paper's When answer is phase-dependent — prefill GEMMs carry
     M = seq_len reuse while decode GEMMs collapse to M = batch — so a
     single plan over a mixed workload mis-gates one phase or the other.
-    Each phase is planned independently over its own GEMM set.
+    Each phase is planned independently over its own GEMM set (one
+    batched sweep per phase, one result cache across phases).
 
     Raises ValueError on a phase with zero GEMMs: an empty phase plan
     would silently gate *nothing* for that phase (every lookup would
@@ -172,7 +187,8 @@ def plan_workload_by_phase(phase_gemms: dict,
                 "phase plan would silently disable gating for that phase; "
                 "omit the phase instead of passing an empty workload")
         plans[phase] = plan_workload(gemms, configs, order_mode,
-                                     backend=backend)
+                                     backend=backend, engine=engine,
+                                     device=device)
     return plans
 
 

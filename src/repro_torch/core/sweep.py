@@ -1,0 +1,461 @@
+"""Batched What/When/Where sweep engine (the planner's fast path), on one
+device.
+
+`planner.decide` answers the paper's three questions one scalar
+cost-model call at a time.  This module flattens a whole workload —
+every GEMM, every config, every candidate mapping — into two row batches
+(CiM rows and baseline tile rows) and scores each in one device pass:
+
+  * backend="vectorized": the CiM rows run `vectorized.evaluate_flat`,
+    the spec as eager torch ops on the engine's device;
+  * backend="pallas": the CiM rows run the hand-written sweep kernel
+    (`kernels/sweep_eval.py`, CUDA C++ on the card; its plain torch
+    version for a CPU engine).  The name is the JAX package's, so every
+    call and CLI flag reads the same in the port; there is no fallback
+    from it, so `cache_info()["pallas_fallback"]` is always None;
+  * the tensor-core baseline rows run `vectorized.evaluate_baseline_flat`
+    for both backends.
+
+Results are memoized in an LRU keyed by (backend, GEMM shape, system
+config, order_mode), so repeated queries (every serving core asks about
+the same GEMMs) touch no device.  The cache and the hit/miss counters —
+per engine, per calling thread and per backend keyspace — are guarded by
+a lock.
+
+`SweepEngine(chunk_rows=N)` bounds every device pass to N rows: the grid
+is generated group by group (a group is one query's candidate rows) and
+streamed through the kernel in tiles, with a cross-chunk running
+reduction per group that keeps the first index on ties, so the result is
+bit for bit the whole-batch one; `cache_info()["chunks"]` counts them.
+
+Not ported: the JAX package's row mesh (`shard_map`, multi-host
+`jax.distributed`), its jit registry (`jit_cache_clear`,
+`jit_kernel_count`: nothing here is jitted) and the VMEM-sized block
+autotune.
+"""
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from typing import Iterable, Sequence
+
+import numpy as np
+import torch
+
+from .baseline import evaluate_baseline
+from .cost_model import Metrics, evaluate, metrics_from_row
+from .gemm import GEMM
+from .loopnest import check_order_mode
+from .mapping import candidate_mappings
+from .memory import CiMSystemConfig
+from .vectorized import (BASE_FLAT_FIELDS, FLAT_FIELDS, MAP_FIELDS,
+                         SWEEP_OUT_FIELDS, config_row,
+                         enumerate_baseline_space, evaluate_baseline_flat,
+                         evaluate_flat, precision_row)
+
+_OUT_KEYS = ("energy_pj", "time_ns", "compute_ns", "dram_ns", "smem_ns",
+             "utilization", "dram_bytes", "smem_bytes", "valid")
+
+# The result-cache/counter buckets a CiM query can resolve to; the
+# baseline keyspace is "baseline".
+CIM_BACKENDS = ("vectorized", "pallas")
+
+
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; "cuda" on a torch without a CUDA
+    device raises (the port never falls back to the CPU on its own)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the sweep engine runs on 'cuda' by default and "
+                           "this torch has no CUDA device; pass "
+                           "device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"the sweep engine runs on cuda or cpu, got {dev}")
+    return dev
+
+
+def _gemm_key(g: GEMM):
+    return (g.M, g.N, g.K, g.bits, g.fp)
+
+
+def _cfg_key(cfg: CiMSystemConfig):
+    p = cfg.prim
+    return (p.name, p.Rp, p.Cp, p.Rh, p.Ch, p.capacity_bytes, p.latency_ns,
+            p.mac_energy_pj, cfg.cim_level, cfg.resolved_n_prims(),
+            cfg.serialize_primitives, cfg.kn_balance_threshold)
+
+
+def _cat_cols(parts: list[dict]) -> dict:
+    """Concatenate columnar row-group slices into one flat batch."""
+    if len(parts) == 1:
+        return dict(parts[0])
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def _iter_chunks(groups, chunk_rows: int | None):
+    """The streaming enumerator: walk `groups` — an iterable of (gid,
+    cols), cols a dict of equal-length (n,) numpy columns — and yield
+    evaluation tiles of at most `chunk_rows` rows.
+
+    Yields (batch, segments): `batch` is the concatenated columns,
+    `segments` is [(gid, group_offset, lo, hi)] mapping each slice of the
+    tile back to its group (a group larger than a tile spans several).
+    chunk_rows=None yields one tile holding everything.  Groups are
+    consumed lazily."""
+    parts: list[dict] = []
+    segs: list[tuple] = []
+    filled = 0
+    for gid, cols in groups:
+        n = len(next(iter(cols.values())))
+        off = 0
+        while off < n:
+            take = (n - off if chunk_rows is None
+                    else min(n - off, chunk_rows - filled))
+            parts.append({k: v[off:off + take] for k, v in cols.items()})
+            segs.append((gid, off, filled, filled + take))
+            filled += take
+            off += take
+            if chunk_rows is not None and filled >= chunk_rows:
+                yield _cat_cols(parts), segs
+                parts, segs, filled = [], [], 0
+    if filled:
+        yield _cat_cols(parts), segs
+
+
+def candidate_cols(gemm: GEMM, cfg: CiMSystemConfig, order_mode: str):
+    """(mappings, cols): the candidate mappings of one (GEMM, config)
+    query and their FLAT_FIELDS rows as (n,) f32 numpy columns."""
+    maps = candidate_mappings(gemm, cfg, order_mode)
+    crow = {"M": gemm.M, "N": gemm.N, "K": gemm.K,
+            **precision_row(gemm), **config_row(cfg)}
+    cols = {f: np.full(len(maps), float(v), np.float32)
+            for f, v in crow.items()}
+    for f in MAP_FIELDS:
+        cols[f] = np.asarray([getattr(mp, f) for mp in maps], np.float32)
+    return maps, cols
+
+
+def _cim_fn(kernel: str, order_mode: str):
+    """(24, n) field matrix on the device -> (11, n) output matrix in
+    SWEEP_OUT_FIELDS order."""
+    from ..kernels.sweep_eval import sweep_eval   # kernels import core
+    if kernel == "pallas":
+        return lambda rows: sweep_eval(rows, order_mode=order_mode)
+
+    def run(rows):
+        out = evaluate_flat({f: rows[i] for i, f in enumerate(FLAT_FIELDS)},
+                            order_mode=order_mode)
+        return torch.stack([out[f].to(torch.float32)
+                            for f in SWEEP_OUT_FIELDS])
+    return run
+
+
+def _base_fn(rows):
+    out = evaluate_baseline_flat(
+        {f: rows[i] for i, f in enumerate(BASE_FLAT_FIELDS)})
+    return torch.stack([out[f].to(torch.float32) for f in SWEEP_OUT_FIELDS])
+
+
+class SweepEngine:
+    """Whole-workload batched planner evaluation with an LRU result cache,
+    on one device.
+
+    cim_metrics / baseline_metrics return the Metrics the scalar cost
+    model produces (within float32 tolerance), evaluating every uncached
+    (GEMM, config) pair of a query in one device pass (or one per chunk
+    of `chunk_rows` rows).  `device` defaults to "cuda"; a CPU engine
+    passes device="cpu"."""
+
+    def __init__(self, cache_size: int = 16384,
+                 chunk_rows: int | None = None, device="cuda"):
+        if chunk_rows is not None and chunk_rows < 1:
+            raise ValueError(f"chunk_rows must be >= 1 or None, "
+                             f"got {chunk_rows}")
+        self.device = resolve_device(device)
+        self.cache_size = cache_size
+        self.chunk_rows = chunk_rows
+        self._cache: OrderedDict = OrderedDict()
+        self._lock = threading.RLock()
+        self._local = threading.local()   # per-thread hit/miss counters
+        self.hits = 0
+        self.misses = 0
+        self._backend_counts: dict = {}
+        self._chunks_evaluated = 0
+        self._rows_evaluated = 0
+
+    # --- cache plumbing ---------------------------------------------------
+    def _get(self, key, bucket: str):
+        with self._lock:
+            counts = self._backend_counts.setdefault(
+                bucket, {"hits": 0, "misses": 0})
+            if key in self._cache:
+                self._cache.move_to_end(key)
+                self.hits += 1
+                counts["hits"] += 1
+                self._local.hits = getattr(self._local, "hits", 0) + 1
+                return self._cache[key]
+            self.misses += 1
+            counts["misses"] += 1
+            self._local.misses = getattr(self._local, "misses", 0) + 1
+            return None
+
+    def thread_cache_counts(self) -> tuple[int, int]:
+        """(hits, misses) accrued by the CALLING thread only — monotonic,
+        unaffected by cache_clear (see measured_cache_delta)."""
+        tl = self._local
+        return getattr(tl, "hits", 0), getattr(tl, "misses", 0)
+
+    def _put(self, key, value):
+        with self._lock:
+            self._cache[key] = value
+            self._cache.move_to_end(key)
+            while len(self._cache) > self.cache_size:
+                self._cache.popitem(last=False)
+
+    def cache_info(self) -> dict:
+        """Size + hit/miss totals, the per-backend breakdown (vectorized /
+        pallas / baseline keyspaces), `pallas_fallback` (always None: the
+        port never falls back from the kernel), the device and kernel
+        mode, and the streaming accounting under "chunks" (tiles and rows
+        evaluated)."""
+        from ..kernels.sweep_eval import kernel_status
+        with self._lock:
+            return {"size": len(self._cache), "max_size": self.cache_size,
+                    "hits": self.hits, "misses": self.misses,
+                    "backends": {b: dict(c) for b, c in
+                                 self._backend_counts.items()},
+                    "pallas_fallback": None,
+                    "device": str(self.device),
+                    "kernel": kernel_status(self.device)["mode"],
+                    "chunks": {"chunk_rows": self.chunk_rows,
+                               "evaluated": self._chunks_evaluated,
+                               "rows": self._rows_evaluated}}
+
+    def cache_clear(self) -> None:
+        with self._lock:
+            self._cache.clear()
+            self.hits = self.misses = 0
+            self._backend_counts = {}
+            self._chunks_evaluated = 0
+            self._rows_evaluated = 0
+
+    # --- streaming evaluation --------------------------------------------
+    def _stream_batches(self, fn, fields, groups, update) -> None:
+        """Fold a lazily-enumerated grid through `fn` tile by tile: each
+        tile's columns go to the device as one (len(fields), n) matrix,
+        the (11, n) result comes back as host columns, and
+        `update(gid, group_offset, out, lo, hi)` folds each segment into
+        the caller's running per-group reduction."""
+        for cols, segs in _iter_chunks(groups, self.chunk_rows):
+            n = len(next(iter(cols.values())))
+            host = np.stack([np.asarray(cols[f], np.float32) for f in fields])
+            res = fn(torch.from_numpy(host).to(self.device)).cpu().numpy()
+            out = {f: res[j] for j, f in enumerate(SWEEP_OUT_FIELDS)}
+            out["valid"] = out["valid"] > 0.5
+            with self._lock:
+                self._chunks_evaluated += 1
+                self._rows_evaluated += n
+            for gid, off, lo, hi in segs:
+                update(gid, off, out, lo, hi)
+
+    # --- CiM options ------------------------------------------------------
+    def cim_metrics(self, pairs: Sequence[tuple[GEMM, CiMSystemConfig]],
+                    order_mode: str = "exact",
+                    backend: str = "vectorized") -> list[Metrics]:
+        """Metrics for each (GEMM, config) pair: the min-energy candidate
+        mapping (first on ties), scored on the device (==
+        cost_model.evaluate).  Both order modes select the DRAM order
+        per row in the kernel.  Each backend has its own result-cache
+        keyspace, so backend parity tests measure the kernel, not the
+        LRU."""
+        check_order_mode(order_mode)
+        if backend not in CIM_BACKENDS:
+            raise ValueError(f"unknown sweep backend {backend!r}; "
+                             f"expected one of {CIM_BACKENDS}")
+        keys = [("cim", backend, _gemm_key(g), _cfg_key(c), order_mode)
+                for g, c in pairs]
+        results: dict = {}
+        todo: OrderedDict = OrderedDict()      # key -> (gemm, cfg)
+        for key, (g, c) in zip(keys, pairs):
+            hit = self._get(key, backend)
+            if hit is not None:
+                results[key] = hit
+            else:
+                todo.setdefault(key, (g, c))
+
+        if todo:
+            best: dict = {}          # key -> [energy, out_row, mapping]
+            # candidate lists of groups still in flight, dropped as soon
+            # as a group completes (host memory holds O(chunk) mappings)
+            live: dict = {}          # key -> [maps, rows_remaining]
+
+            def groups():
+                for key, (g, c) in todo.items():
+                    maps, cols = candidate_cols(g, c, order_mode)
+                    live[key] = [maps, len(maps)]
+                    yield key, cols
+
+            def update(key, off, out, lo, hi):
+                # min-energy valid row; strict < keeps the first index on
+                # ties, within a tile (np.argmin) and across tiles alike
+                entry = live[key]
+                e = np.where(out["valid"][lo:hi],
+                             out["energy_pj"][lo:hi], np.inf)
+                i = int(np.argmin(e))
+                st = best.get(key)
+                if np.isfinite(e[i]) and (st is None or e[i] < st[0]):
+                    best[key] = [e[i], {k: out[k][lo + i]
+                                        for k in _OUT_KEYS},
+                                 entry[0][off + i]]
+                entry[1] -= hi - lo
+                if entry[1] == 0:              # group fully reduced
+                    del live[key]
+
+            self._stream_batches(_cim_fn(backend, order_mode), FLAT_FIELDS,
+                                 groups(), update)
+            for key, (g, c) in todo.items():
+                st = best.get(key)
+                if st is None:                 # should not happen: mappings
+                    met = evaluate(g, c, order_mode)   # are pre-validated
+                else:
+                    met = metrics_from_row(g.ops, st[1], mapping=st[2])
+                self._put(key, met)
+                results[key] = met
+        return [results[k] for k in keys]
+
+    # --- tensor-core baseline --------------------------------------------
+    def baseline_metrics(self, gemms: Sequence[GEMM]) -> list[Metrics]:
+        """Baseline Metrics per GEMM: the full tile grid scored on the
+        device, lexicographic (time, energy) winner (==
+        evaluate_baseline)."""
+        keys = [("base", _gemm_key(g)) for g in gemms]
+        results: dict = {}
+        todo: OrderedDict = OrderedDict()
+        for key, g in zip(keys, gemms):
+            hit = self._get(key, "baseline")
+            if hit is not None:
+                results[key] = hit
+            else:
+                todo.setdefault(key, g)
+
+        if todo:
+            best: dict = {}          # key -> [time, energy, out_row]
+
+            def groups():
+                for key, g in todo.items():
+                    yield key, enumerate_baseline_space(g)
+
+            def update(key, off, out, lo, hi):
+                # lexicographic (time, energy) among valid rows, first
+                # index on ties; strict-improvement replacement keeps it
+                # across tiles (earlier tiles hold earlier rows)
+                ok = out["valid"][lo:hi]
+                t = np.where(ok, out["time_ns"][lo:hi], np.inf)
+                tmin = t.min()
+                if not np.isfinite(tmin):
+                    return                       # no valid row in segment
+                cand = np.where(t == tmin,
+                                np.where(ok, out["energy_pj"][lo:hi],
+                                         np.inf), np.inf)
+                i = int(np.argmin(cand))
+                st = best.get(key)
+                if (st is None or tmin < st[0]
+                        or (tmin == st[0] and cand[i] < st[1])):
+                    best[key] = [tmin, cand[i],
+                                 {k: out[k][lo + i] for k in _OUT_KEYS}]
+
+            self._stream_batches(_base_fn, BASE_FLAT_FIELDS, groups(),
+                                 update)
+            for key, g in todo.items():
+                st = best.get(key)
+                met = (evaluate_baseline(g) if st is None
+                       else metrics_from_row(g.ops, st[2]))
+                self._put(key, met)
+                results[key] = met
+        return [results[k] for k in keys]
+
+
+# One shared engine per device type, built at first use (importing this
+# module touches no card): serving cores, campaigns' certification and
+# the planner reuse each other's results.
+_ENGINES: dict[str, SweepEngine] = {}
+_ENGINES_LOCK = threading.Lock()
+
+
+def default_engine(device="cuda") -> SweepEngine:
+    """The process-wide engine for `device`'s type ("cuda" or "cpu")."""
+    dev = resolve_device(device)
+    with _ENGINES_LOCK:
+        eng = _ENGINES.get(dev.type)
+        if eng is None:
+            eng = _ENGINES[dev.type] = SweepEngine(device=dev)
+        return eng
+
+
+def measured_cache_delta(fn, engine: SweepEngine | None = None):
+    """Run `fn()` (a plan build against `engine`, by default the default
+    CUDA engine) and return (result, telemetry): the engine's hit/miss
+    delta attributed to this call through its per-thread counters, plus
+    the engine-wide totals.  `fn` must do its engine queries on the
+    calling thread, which plan_workload does."""
+    engine = engine or default_engine()
+    h0, m0 = engine.thread_cache_counts()
+    result = fn()
+    h1, m1 = engine.thread_cache_counts()
+    return result, {
+        "plan_hits": h1 - h0,
+        "plan_misses": m1 - m0,
+        "engine": engine.cache_info(),
+    }
+
+
+def sweep_evaluate(gemm: GEMM, cfg: CiMSystemConfig,
+                   order_mode: str = "exact", device="cuda") -> Metrics:
+    """Cached batched equivalent of cost_model.evaluate."""
+    return default_engine(device).cim_metrics([(gemm, cfg)], order_mode)[0]
+
+
+def sweep_evaluate_baseline(gemm: GEMM, device="cuda") -> Metrics:
+    """Cached batched equivalent of baseline.evaluate_baseline."""
+    return default_engine(device).baseline_metrics([gemm])[0]
+
+
+def plan_workload_batched(gemms: Iterable[GEMM],
+                          configs: dict[str, CiMSystemConfig] | None = None,
+                          order_mode: str = "exact",
+                          throughput_floor: float = 0.5,
+                          engine: SweepEngine | None = None,
+                          backend: str = "vectorized",
+                          device="cuda"):
+    """Batched planner.plan_workload: one device pass per kind (CiM /
+    baseline) on `engine` (default: the default engine of `device`),
+    then exactly the eligibility and "when" rules of planner.decide.
+    backend picks the CiM row evaluator; the baseline rows are shared by
+    both backends, so verdicts can only differ through the CiM rows."""
+    from .planner import make_decision, standard_configs
+    engine = engine or default_engine(device)
+    gemms = list(gemms)
+    configs = configs or standard_configs()
+    names = list(configs)
+    bases = engine.baseline_metrics(gemms)
+    pairs = [(g, configs[name]) for g in gemms for name in names]
+    mets = engine.cim_metrics(pairs, order_mode, backend)
+    decisions = []
+    for i, g in enumerate(gemms):
+        opts = {name: mets[i * len(names) + j]
+                for j, name in enumerate(names)}
+        decisions.append(make_decision(g, bases[i], opts, throughput_floor))
+    return decisions
+
+
+def decide_batched(gemm: GEMM,
+                   configs: dict[str, CiMSystemConfig] | None = None,
+                   order_mode: str = "exact",
+                   throughput_floor: float = 0.5,
+                   engine: SweepEngine | None = None,
+                   backend: str = "vectorized",
+                   device="cuda"):
+    """plan_workload_batched for one GEMM."""
+    return plan_workload_batched([gemm], configs, order_mode,
+                                 throughput_floor, engine, backend,
+                                 device)[0]

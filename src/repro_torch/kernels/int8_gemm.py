@@ -4,9 +4,8 @@ Hopper kernel that replaces the TPU kernel `repro/kernels/int8_gemm.py`
 runs), beside its plain torch version.
 
 The CUDA source is `csrc/int8_gemm.cu` (its header comment gives the
-bound and the design).  It is compiled with nvcc for sm_90a at first use
-into `build/repro_torch/` at the repository root, in a library named by a
-hash of the source and flags, and loaded with ctypes.
+bound and the design).  `kernels/build.py` compiles it with nvcc for
+sm_90a at first use and loads it with ctypes.
 
 `int8_gemm` takes the plain version only for tensors on the CPU; on a
 CUDA tensor it launches the kernel or raises.  On "meta" tensors (the
@@ -17,68 +16,24 @@ launches.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "int8_gemm.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-
-@dataclasses.dataclass(frozen=True)
-class KernelBuild:
-    """A built and loaded kernel library."""
-    lib: ctypes.CDLL
-    path: Path
-    seconds: float       # nvcc wall time; 0.0 when the library was cached
-    log: str             # nvcc's output (the -Xptxas -v register lines)
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the INT8 "
-                       "GEMM kernel cannot be built")
+from .build import KernelBuild, build_library
 
 
 @functools.lru_cache(maxsize=None)
 def build() -> KernelBuild:
     """Compile (once per source hash) and load the kernel library."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = BUILD_DIR / f"int8_gemm_{tag}.so"
-    seconds, log = 0.0, ""
-    if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, path)        # atomic: concurrent builders agree
-    lib = ctypes.CDLL(str(path))
-    fn = lib.int8_gemm_launch
+    kb = build_library("int8_gemm")
+    fn = kb.lib.int8_gemm_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return KernelBuild(lib=lib, path=path, seconds=seconds, log=log)
+    return kb
 
 
 def int8_gemm_ref(x, w_q, scale):

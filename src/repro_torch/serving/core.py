@@ -7,11 +7,14 @@ What/When/Where verdicts as a static `KernelPlanTable` per serving phase.
 `ServeSession` (repro_torch.serving.engine) is a thin mutable shell over
 one core.
 
+The verdicts come from the batched planner (backend="vectorized") on the
+sweep engine of the core's own device; `plan_cache_telemetry` reports
+how much of that plan build the engine's result cache served.
+
 The JAX package compiles the step once per plan and counts executables;
 the port runs the step eagerly, so every step takes the routes of the
-core's frozen tables.  A CUDA-graph capture of the step, the batched
-sweep's plan-cache telemetry and the continuous-batching step are not
-ported yet (ROADMAP.md).
+core's frozen tables.  A CUDA-graph capture of the step and the
+continuous-batching step are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 from ..configs.base import ModelConfig, RunConfig
 from ..core.llm_workloads import is_projection_label, phase_gemms_of_model
 from ..core.planner import plan_workload_by_phase
+from ..core.sweep import default_engine, measured_cache_delta
 from ..models import decode_step, init_cache
 from ..models.layers import route_trace
 from ..quant import (KernelPlanTable, quantize_model_params,
@@ -107,6 +111,7 @@ class DecodeCore:
                                  f"runs on {self.device}")
         self._kernel_plan = None
         self._kernel_plans = None
+        self._plan_cache_telemetry = None
         self._plan_lock = threading.Lock()
         self._verdict_table = None
         self._phase_verdict_tables = None
@@ -133,7 +138,9 @@ class DecodeCore:
     @property
     def kernel_plan(self) -> dict:
         """label -> planner Decision for this core's decode GEMMs, built
-        lazily (once, under a lock) by the scalar planner."""
+        lazily (once, under a lock) by the batched planner on the core's
+        device; the engine's result cache makes repeat cores over the
+        same shapes free."""
         if self._kernel_plan is None:
             with self._plan_lock:
                 if self._kernel_plan is None:
@@ -145,10 +152,22 @@ class DecodeCore:
         # prefill GEMMs at M = plan_max_len
         phases = phase_gemms_of_model(self.cfg, self.plan_max_len,
                                       self.plan_batch)
-        by_phase = plan_workload_by_phase(phases, backend="scalar")
+        engine = default_engine(self.device)
+        by_phase, self._plan_cache_telemetry = measured_cache_delta(
+            lambda: plan_workload_by_phase(phases, backend="vectorized",
+                                           engine=engine), engine)
         self._kernel_plans = {ph: {d.gemm.label: d for d in ds}
                               for ph, ds in by_phase.items()}
         self._kernel_plan = self._kernel_plans["decode"]
+
+    @property
+    def plan_cache_telemetry(self) -> dict:
+        """The sweep engine's telemetry of this core's plan build
+        (triggers the build on first access): how many of the verdict
+        lookups the result cache served (`plan_hits`) and how many were
+        evaluated (`plan_misses`), plus the engine-wide `cache_info()`."""
+        _ = self.kernel_plan
+        return self._plan_cache_telemetry
 
     @property
     def kernel_plans(self) -> dict:

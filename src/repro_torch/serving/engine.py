@@ -77,6 +77,11 @@ class ServeSession:
         return self.core.kernel_plan
 
     @property
+    def plan_cache_telemetry(self) -> dict:
+        """The sweep engine's telemetry of this session's plan build."""
+        return self.core.plan_cache_telemetry
+
+    @property
     def verdict_table(self) -> KernelPlanTable:
         """This session's raw decode verdicts as a KernelPlanTable."""
         return self.core.verdict_table

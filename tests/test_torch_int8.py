@@ -155,7 +155,8 @@ def test_planned_linear_matches(use_cim, dtype):
 def test_plan_table_behaves_the_same(batch):
     name = "qwen2-7b-smoke"
     ours = plan_workload_by_phase(
-        phase_gemms_of_model(reduced(ARCHS["qwen2-7b"]), 16, batch))
+        phase_gemms_of_model(reduced(ARCHS["qwen2-7b"]), 16, batch),
+        backend="scalar")
     ref = jax_plan_by_phase(
         jax_phase_gemms_of_model(jax_reduced(JAX_ARCHS["qwen2-7b"]), 16,
                                  batch), backend="vectorized")

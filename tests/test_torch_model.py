@@ -59,8 +59,8 @@ def _tables(jcfg, tcfg):
     """Decode tables of both planners for this shape; they must agree."""
     name = tcfg.name
     t = KernelPlanTable.from_decisions(plan_workload_by_phase(
-        phase_gemms_of_model(tcfg, MAX_LEN, BATCH))["decode"],
-        model_name=name)
+        phase_gemms_of_model(tcfg, MAX_LEN, BATCH),
+        backend="scalar")["decode"], model_name=name)
     j = JaxKernelPlanTable.from_decisions(jax_plan_by_phase(
         jax_phase_gemms_of_model(jcfg, MAX_LEN, BATCH),
         backend="vectorized")["decode"], model_name=name)

@@ -1,7 +1,9 @@
 """The port's scalar cost model and planner against the JAX package's.
 
-* every qwen2-7b row of tests/golden/planner_verdicts.csv, exactly (the
-  full 1338-row grid is a slow case: the scalar backend takes ~40 s);
+* every qwen2-7b row of tests/golden/planner_verdicts.csv, exactly, on
+  the scalar backend (its full 1338-row grid is a slow case: the scalar
+  backend takes ~40 s; tests/test_torch_sweep.py holds the batched
+  backends to the full grid);
 * `KernelPlanTable.digest` of the full-width qwen2-7b serving tables
   against the JAX package's vectorized planner;
 * `Metrics` of the cost-model calibration cases, exactly (the cost
@@ -13,6 +15,7 @@ import dataclasses
 import os
 
 import pytest
+import torch
 
 from repro.core.cost_model import evaluate as jax_evaluate
 from repro.core.baseline import evaluate_baseline as jax_evaluate_baseline
@@ -87,10 +90,19 @@ def test_golden_verdicts_full_grid_scalar():
 
 
 def test_unported_backends_raise():
-    g = [GEMM(8, 64, 64)]
+    """The batched backends are ported: on a CPU engine they give the
+    scalar planner's verdicts; without a device they mean the card and
+    raise on a CPU-only torch; unknown backends raise."""
+    g = [GEMM(8, 64, 64), GEMM(512, 1024, 1024, bits=4)]
+    want = [(d.best_energy, d.best_throughput, d.use_cim)
+            for d in plan_workload(g, backend="scalar")]
     for backend in ("vectorized", "pallas"):
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            plan_workload(g, backend=backend)
+        got = plan_workload(g, backend=backend, device="cpu")
+        assert [(d.best_energy, d.best_throughput, d.use_cim)
+                for d in got] == want
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                plan_workload(g, backend=backend)
     with pytest.raises(ValueError):
         plan_workload(g, backend="bogus")
 
@@ -101,7 +113,8 @@ def test_full_width_qwen2_7b_plan_digests_match_reference():
     name = "qwen2-7b"
     ours = {ph: KernelPlanTable.from_decisions(ds, model_name=name)
             for ph, ds in plan_workload_by_phase(
-                phase_gemms_of_model(ARCHS[name], 33, 8)).items()}
+                phase_gemms_of_model(ARCHS[name], 33, 8),
+                backend="scalar").items()}
     ref = {ph: JaxKernelPlanTable.from_decisions(ds, model_name=name)
            for ph, ds in jax_plan_by_phase(
                jax_phase_gemms_of_model(JAX_ARCHS[name], 33, 8),
