@@ -5,48 +5,74 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It drives the port's two main paths on the card: the planner-gated INT8
+It drives the port's three main paths on the card: the planner-gated INT8
 serving of qwen2-7b at full width (28 layers, random weights from a seed,
-INT8-quantized), and the batched What/When/Where sweep with its
+INT8-quantized), its prefill forward (one 2048-token prompt through the
+flash-attention kernel), and the batched What/When/Where sweep with its
 design-space campaigns.  In order it:
 
 1. prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions and the TF32 switches (both off);
-2. builds both kernels from `src/repro_torch/kernels/csrc` with nvcc, the
-   two nvcc runs started together, and prints their build times and
+2. builds the four kernels from `src/repro_torch/kernels/csrc` with nvcc,
+   the four nvcc runs started together, and prints their build times and
    ptxas register/smem/spill lines;
 3. holds the INT8 GEMM kernel against its plain torch version at every
-   qwen2-7b projection shape (M = 8 and 128, bf16) and at ragged shapes,
-   with max|Δ| ≤ 1e-4·max|ref|, and times kernel, plain version, the
-   weight-bytes bound and a yardstick (`torch.matmul` against a
+   qwen2-7b projection shape (M = 8, 128 and the prefill's 2048, bf16) and
+   at ragged shapes, with max|Δ| ≤ 1e-4·max|ref|, and times kernel, plain
+   version, the bound and a yardstick (`torch.matmul` against a
    pre-dequantized bf16 weight, which the port never calls);
-4. holds the sweep kernel against its plain version bit for bit (NaN
+4. holds the flash-attention kernel against its plain version (every
+   case in f32 and bf16; GQA 28/4 and 8/1; sq = sk and sq < sk; a window;
+   d = 64 and 128), element by element within the bounds of ATTN_TOL_DOC,
+   and times it, the plain version and `scaled_dot_product_attention`
+   (the yardstick) at qwen2-7b's prefill shape;
+5. does the same for the flash-decoding kernel (length 0, 7, 300 and S;
+   S = 300, not a multiple of 512), timed at qwen2-7b's decode_32k shape;
+   its main path is its public wrapper `ops.decode_attention`, called
+   once there with the launch count read around the call;
+6. holds the sweep kernel against its plain version bit for bit (NaN
    positions included) on the CUDA tensors and on a CPU copy of the first
    65,536 rows: every candidate row of the 1338-verdict golden grid in
    both order modes, invalid and degenerate rows, and the 32,768-row
    batch of benchmarks/sweep_bench.py tiled to 4,194,304 rows, which it
    also times against the plain version and the bytes bound;
-5. plans the golden grid on the card with backend="vectorized" and
+7. plans the golden grid on the card with backend="vectorized" and
    "pallas" (every verdict equal to tests/golden/planner_verdicts.csv),
    with cold and cached plan times;
-6. runs campaigns on the card: the golden spec on both backends and on a
+8. runs campaigns on the card: the golden spec on both backends and on a
    chunk_rows=512 engine (front CSV byte-equal to
    tests/golden/campaign_front.csv), then the default 142,720-point grid
    through `python -m repro_torch.launch.campaign --backend pallas` (the
    frontier byte-equal to results/campaign/frontier.csv once that file's
    precision column is normalized from `8` to `int8`), and a profiler
    window and a host (cProfile) profile over a smaller campaign;
-7. serves batch 8 (16-token prompt, 16 greedy tokens) with gating on,
+9. serves batch 8 (16-token prompt, 16 greedy tokens) with gating on,
    prints the plan-cache telemetry of the batched planner, checks the
    route report (all 8 labels on the kernel) and that the kernel ran
    exactly (16 + 16) x 197 times, then serves the same weights ungated
    (0 launches) and compares the first-step logits;
-8. prints one JSON line of kernel numbers, the card line, and last
+10. runs the prefill forward on the serve's INT8 weights: a `DecodeCore`
+   planned at batch 8 and length 2048, `make_prefill(cfg,
+   RunConfig(attn_impl="pallas"), core.prefill_plan_table)` on one
+   (1, 2048) prompt; checks that the prefill table gates all 8 labels,
+   that the forward launched flash_attention exactly 28 times and
+   int8_gemm exactly 197 times, and that its logits agree with the same
+   forward on `attn_impl="flash_jnp"` (plain torch attention); prints the
+   wall time, prefill tokens/s, peak memory and a traced forward's device
+   time by kernel;
+11. cross-checks the two serving paths: `forward` with attn_impl="pallas"
+   and attn_chunk=8 on the serve's batch-8, 16-token prompt (the kernel
+   at a 16-row block) under the serve's prefill table, against
+   `ServeSession.prefill` (token by token): last-position logits within
+   LOGIT_TOL·max|ref| and the greedy next tokens;
+12. prints one JSON line of kernel numbers, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Each kernel's launch count in that line comes from its own main path
-(the default-grid campaign for sweep_eval, the gated serve for int8_gemm),
-counted from 0 just before that path ran.
+(the default-grid campaign for sweep_eval, the gated serve and the
+prefill forward for int8_gemm, which has one entry for each, the prefill
+forward for flash_attention, one call of the public wrapper for
+decode_attention), counted from 0 just before that path ran.
 
 Any failed phase raises and exits non-zero; so does a machine with no
 CUDA device or a directory without the port.
@@ -80,6 +106,25 @@ SWEEP_CPU_ROWS = 65536       # rows also held against the CPU plain version
 SWEEP_IN_FIELDS, SWEEP_OUT_ROWS = 24, 11
 CAMPAIGN_CHUNK = 4096        # the campaign CLI's default --chunk-rows
 GOLDEN_DIR = os.path.join(HERE, "tests", "golden")
+BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
+PREFILL = 2048               # prefill prompt length (qwen2-7b prefill phase)
+DECODE_S = 32768             # decode_32k cache length
+ATTN_TOL_DOC = ("per element, against the plain version: f32 "
+                "1e-5·max|ref|; bf16 1.02·2^-7·|ref| (one bf16 ulp) + "
+                "2^-12·(P|v|), plus 2^-8·(P|v|) for flash_attention, which "
+                "rounds p to bf16 for PV (P the plain softmax weights; "
+                "kernels/flash_attention.py:compare_to_plain)")
+# flash cases (b, sq, sk, H, KV, d, window), each in bf16 and f32; the card
+# tests (tests/test_torch_cuda.py) run these and their own edge cases
+FLASH_CASES = [(1, PREFILL, PREFILL, 28, 4, 128, 0),
+               (2, 256, 256, 8, 1, 64, 0),
+               (2, 128, 384, 28, 4, 128, 0),
+               (1, 512, 512, 8, 1, 64, 100),
+               (BATCH, PROMPT, PROMPT, 28, 4, 128, 0)]
+# decode cases (b, S, H, KV, d), each in bf16 and f32 at length 0, 7, 300, S
+DECODE_CASES = [(BATCH, DECODE_S, 28, 4, 128), (3, 4096, 28, 4, 128),
+                (2, 300, 8, 1, 64)]
+ATTN_DTYPES = ("bfloat16", "float32")
 FRONTIER = os.path.join(HERE, "results", "campaign", "frontier.csv")
 
 
@@ -213,6 +258,49 @@ def host_profile(fn, named: tuple[str, ...]) -> dict:
     return {"wall_s": wall, "lines": lines}
 
 
+def attn_inputs(torch, shapes, dtype, seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(s, generator=gen, device="cuda").to(dtype)
+            for s in shapes]
+
+
+def check_flash(torch, ops, fa_mod) -> list[dict]:
+    """ops.flash_attention vs the plain version on every FLASH_CASES, in
+    both dtypes, element by element (ATTN_TOL_DOC)."""
+    rows = []
+    for (b, sq, sk, h, kv, d, window), dt in (
+            (c, dt) for c in FLASH_CASES for dt in ATTN_DTYPES):
+        q, k, v = attn_inputs(torch, [(b, sq, h, d), (b, sk, kv, d),
+                                      (b, sk, kv, d)], getattr(torch, dt),
+                              seed=sq + sk + h + d + window)
+        got = ops.fold(ops.flash_attention(q, k, v, window=window))
+        r = fa_mod.flash_attention_check(got, ops.fold(q), ops.fold(k),
+                                         ops.fold(v), True, window)
+        rows.append({"case": (b, sq, sk, h, kv, d, window, dt), **r})
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_decode(torch, ops, da_mod) -> list[dict]:
+    """ops.decode_attention vs the plain version on every DECODE_CASES, in
+    both dtypes, at length 0, 7, 300 and S, element by element."""
+    rows = []
+    for (b, S, h, kv, d), dt in ((c, dt) for c in DECODE_CASES
+                                 for dt in ATTN_DTYPES):
+        q, kc, vc = attn_inputs(torch, [(b, 1, h, d), (b, S, kv, d),
+                                        (b, S, kv, d)], getattr(torch, dt),
+                                seed=S + h + d)
+        for length in sorted({0, 7, min(300, S), S}):
+            got = ops.fold(ops.decode_attention(q, kc, vc, length))
+            r = da_mod.decode_attention_check(got, ops.fold(q), ops.fold(kc),
+                                              ops.fold(vc), length)
+            rows.append({"case": (b, S, h, kv, d, dt, length), **r})
+        del q, kc, vc
+        torch.cuda.empty_cache()
+    return rows
+
+
 def golden_grid(ARCHS, SHAPES, gemms_of_model, phase_gemms_of_model):
     """(arch, shape, precision, GEMM) of tests/test_golden_verdicts.py's
     1338-row grid, in its order."""
@@ -301,14 +389,18 @@ def main() -> int:
     from repro_torch.core.vectorized import (FLAT_FIELDS, MAP_FIELDS,
                                              config_row, enumerate_space,
                                              precision_row)
+    from repro_torch.kernels import ops
     from repro_torch.kernels.int8_gemm import int8_gemm, int8_gemm_ref
     from repro_torch.launch import campaign as campaign_cli
-    from repro_torch.models import init, n_periods
+    from repro_torch.models import forward, init, n_periods, route_trace
     from repro_torch.models.layers import CIM_ROUTE
-    from repro_torch.serving import ServeSession
+    from repro_torch.serving import DecodeCore, ServeSession, make_prefill
     i8_mod = importlib.import_module("repro_torch.kernels.int8_gemm")
     sw_mod = importlib.import_module("repro_torch.kernels.sweep_eval")
+    fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
+    da_mod = importlib.import_module("repro_torch.kernels.decode_attention")
     sweep_eval, sweep_eval_ref = sw_mod.sweep_eval, sw_mod.sweep_eval_ref
+    import torch.nn.functional as F
 
     # --- 1. the card ------------------------------------------------------
     card = card_line()
@@ -321,11 +413,12 @@ def main() -> int:
     print(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn {torch.backends.cudnn.allow_tf32}")
 
-    # --- 2. build both kernels, nvcc runs started together ----------------
+    # --- 2. build the four kernels, nvcc runs started together -------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        futures = {name: pool.submit(mod.build) for name, mod in
-                   (("int8_gemm", i8_mod), ("sweep_eval", sw_mod))}
+    mods = (("int8_gemm", i8_mod), ("sweep_eval", sw_mod),
+            ("flash_attention", fa_mod), ("decode_attention", da_mod))
+    with ThreadPoolExecutor(len(mods)) as pool:
+        futures = {name: pool.submit(mod.build) for name, mod in mods}
         builds = {name: f.result() for name, f in futures.items()}
     print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
           f"(parallel nvcc)")
@@ -347,7 +440,7 @@ def main() -> int:
                    (cfg.d_ff, d): L,                      # mlp-down
                    (d, cfg.vocab): 1}                     # lm_head
     calls_per_step = sum(step_shapes.values())
-    cases = [(m, k, n, torch.bfloat16) for m in (BATCH, 128)
+    cases = [(m, k, n, torch.bfloat16) for m in (BATCH, 128, PREFILL)
              for (k, n) in step_shapes]
     cases += [(m, k, n, dt) for (m, k, n) in RAGGED
               for dt in (torch.bfloat16, torch.float32)]
@@ -378,8 +471,107 @@ def main() -> int:
           f"calls): kernel {per_step['ms']!r} ms, weight-bytes bound "
           f"{per_step['bound_ms']!r} ms, plain {per_step['plain_ms']!r} ms,"
           f" library_ms {per_step['library_ms']!r} ms")
+    at_prefill = {(r["K"], r["N"]): r for r in rows if r["M"] == PREFILL}
+    per_fwd = {key: sum(cnt * at_prefill[kn][key]
+                        for kn, cnt in step_shapes.items())
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                           "bytes_ms", "ops_ms")}
+    print(f"int8_gemm per prefill forward at M = {PREFILL} ({calls_per_step}"
+          f" calls): kernel {per_fwd['ms']!r} ms, bound (operations) "
+          f"{per_fwd['bound_ms']!r} ms, plain {per_fwd['plain_ms']!r} ms, "
+          f"library_ms {per_fwd['library_ms']!r} ms [{card}]")
 
-    # --- 4. the sweep kernel against its plain version, bit for bit ----------
+    # --- 4. flash attention vs plain version; timed at the prefill shape -----
+    frows = check_flash(torch, ops, fa_mod)
+    for r in frows:
+        print(f"flash_attention (b, sq, sk, H, KV, d, window, dtype) = "
+              f"{r['case']}: max|d|={r['max_abs_err']!r}, max |d|/bound="
+              f"{r['worst']!r} {'ok' if r['ok'] else 'FAIL'}")
+    if not all(r["ok"] for r in frows):
+        raise RuntimeError(f"flash_attention disagrees with its plain "
+                           f"version ({ATTN_TOL_DOC}): "
+                           f"{[r for r in frows if not r['ok']]}")
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    q, k, v = attn_inputs(torch, [(1, PREFILL, H, dh), (1, PREFILL, KV, dh),
+                                  (1, PREFILL, KV, dh)], torch.bfloat16, 7)
+    qf, kf, vf = ops.fold(q), ops.fold(k), ops.fold(v)
+    flash_ms = time_ms(torch, lambda i: fa_mod.flash_attention(qf, kf, vf), 1)
+    flash_plain_ms = time_ms(
+        torch, lambda i: fa_mod.flash_attention_ref(qf, kf, vf), 1)
+    q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                          enable_gqa=True)
+    sdpa_err = (sdpa.transpose(1, 2).float()
+                - ops.flash_attention(q, k, v).float()).abs().max().item()
+    flash_lib_ms = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, enable_gqa=True), 1)
+    pairs = int(fa_mod._mask(PREFILL, PREFILL, True, 0, "cpu").sum())
+    flash_ops_ms = 1e3 * 4 * dh * pairs * H / BF16_OPS_PER_S
+    flash_bytes_ms = 1e3 * 2 * (qf.numel() * 2 + kf.numel() * 2) \
+        / HBM_BYTES_PER_S
+    flash_bound_ms = max(flash_ops_ms, flash_bytes_ms)
+    print(f"flash_attention timing at (1, {PREFILL}, {H}/{KV}, {dh}) bf16 "
+          f"causal (one prefill layer): kernel {flash_ms!r} ms, plain "
+          f"{flash_plain_ms!r} ms, library_ms {flash_lib_ms!r} ms "
+          f"(scaled_dot_product_attention, enable_gqa; max|d| vs the kernel "
+          f"{sdpa_err!r}); bound {flash_bound_ms!r} ms = max(operations: "
+          f"{4 * dh * pairs * H / 1e9:.2f} GFLOP over {pairs} unmasked "
+          f"pairs per head at 989 TFLOP/s = {flash_ops_ms!r} ms, bytes: "
+          f"{flash_bytes_ms!r} ms), {flash_bound_ms / flash_ms:.1%} of "
+          f"bound; per {L}-layer forward {L * flash_ms!r} ms [{card}]")
+    del q, k, v, qf, kf, vf, q4, k4, v4, sdpa
+    torch.cuda.empty_cache()
+
+    # --- 5. flash-decoding vs plain version; timed at decode_32k -------------
+    drows = check_decode(torch, ops, da_mod)
+    for r in drows:
+        print(f"decode_attention (b, S, H, KV, d, dtype, length) = "
+              f"{r['case']}: max|d|={r['max_abs_err']!r}, max |d|/bound="
+              f"{r['worst']!r} {'ok' if r['ok'] else 'FAIL'}")
+    if not all(r["ok"] for r in drows):
+        raise RuntimeError(f"decode_attention disagrees with its plain "
+                           f"version ({ATTN_TOL_DOC}): "
+                           f"{[r for r in drows if not r['ok']]}")
+    q, kc, vc = attn_inputs(torch, [(BATCH, 1, H, dh),
+                                    (BATCH, DECODE_S, KV, dh),
+                                    (BATCH, DECODE_S, KV, dh)],
+                            torch.bfloat16, 8)
+    length = torch.tensor(DECODE_S, dtype=torch.int32, device="cuda")
+    da_mod.decode_attention.launches = 0     # its main path: the public
+    out = ops.decode_attention(q, kc, vc, length)  # wrapper, one call
+    torch.cuda.synchronize()
+    decode_launches = da_mod.decode_attention.launches
+    if decode_launches != 1 or not bool(torch.isfinite(out).all()):
+        raise RuntimeError(f"ops.decode_attention launched "
+                           f"{decode_launches} times")
+    qf, kf, vf = ops.fold(q), ops.fold(kc), ops.fold(vc)
+    decode_ms = time_ms(
+        torch, lambda i: da_mod.decode_attention(qf, kf, vf, length), 1)
+    decode_plain_ms = time_ms(
+        torch, lambda i: da_mod.decode_attention_ref(qf, kf, vf, length), 1)
+    q4, k4, v4 = (t.transpose(1, 2) for t in (q, kc, vc))
+    sdpa_err = (F.scaled_dot_product_attention(
+        q4, k4, v4, enable_gqa=True).transpose(1, 2).float()
+        - out.float()).abs().max().item()
+    decode_lib_ms = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+        q4, k4, v4, enable_gqa=True), 1)
+    decode_bytes = 2 * (kf.numel() * 2 + qf.numel() * 2)
+    decode_bytes_ms = 1e3 * decode_bytes / HBM_BYTES_PER_S
+    decode_ops_ms = 1e3 * 4 * dh * DECODE_S * H * BATCH / BF16_OPS_PER_S
+    decode_bound_ms = max(decode_bytes_ms, decode_ops_ms)
+    print(f"decode_attention timing at ({BATCH}, {DECODE_S}, {H}/{KV}, {dh}) "
+          f"bf16, length {DECODE_S}: kernel {decode_ms!r} ms, plain "
+          f"{decode_plain_ms!r} ms, library_ms {decode_lib_ms!r} ms "
+          f"(scaled_dot_product_attention, enable_gqa; max|d| vs the kernel "
+          f"{sdpa_err!r}); bound {decode_bound_ms!r} ms = max(bytes: "
+          f"{decode_bytes / 1e6:.1f} MB at 3.35 TB/s = {decode_bytes_ms!r} "
+          f"ms, operations: {decode_ops_ms!r} ms), "
+          f"{decode_bound_ms / decode_ms:.1%} of bound; main-path launches "
+          f"{decode_launches} [{card}]")
+    del q, kc, vc, qf, kf, vf, q4, k4, v4, out
+    torch.cuda.empty_cache()
+
+    # --- 6. the sweep kernel against its plain version, bit for bit ----------
     configs = standard_configs()
     entries = list(golden_grid(ARCHS, SHAPES, gemms_of_model,
                                phase_gemms_of_model))
@@ -449,7 +641,7 @@ def main() -> int:
     del big, chunk, dev
     torch.cuda.empty_cache()
 
-    # --- 5. the planner on the card --------------------------------------------
+    # --- 7. the planner on the card -----------------------------------------
     with open(os.path.join(GOLDEN_DIR, "planner_verdicts.csv")) as f:
         golden = [(r["arch"], r["shape"], r["precision"], r["label"],
                    r["best_energy"], r["best_throughput"], r["use_cim"],
@@ -484,7 +676,7 @@ def main() -> int:
             raise RuntimeError(f"planner verdicts differ on the card: rows "
                                f"{diffs[:20]}")
 
-    # --- 6. campaigns on the card ----------------------------------------------
+    # --- 8. campaigns on the card -------------------------------------------
     golden_spec = CampaignSpec(
         workloads=(("mistral-nemo-12b", "train_4k"),
                    ("mistral-nemo-12b", "decode_32k")),
@@ -585,7 +777,7 @@ def main() -> int:
     for line in host["lines"]:
         print(f"  {line}")
 
-    # --- 7. serving -----------------------------------------------------------
+    # --- 9. serving --------------------------------------------------------
     rc = RunConfig()
     max_len = PROMPT + NEW + 1
     torch.cuda.reset_peak_memory_stats()
@@ -696,7 +888,109 @@ def main() -> int:
         print("traced gated steps: the profiler recorded no device time "
               "(device busy share not measured)")
 
-    # --- 8. result lines -----------------------------------------------------
+    # --- 10. the prefill forward at full width ------------------------------
+    prc = RunConfig(attn_impl="pallas")
+    t0 = time.perf_counter()
+    core = DecodeCore(cfg, prc, gated.params, quantize=True,
+                      plan_batch=BATCH, plan_max_len=PREFILL, device="cuda")
+    ptable = core.prefill_plan_table
+    t_plan = time.perf_counter() - t0
+    gates = {lab: ptable.use_cim(lab) for lab in projections}
+    print(f"prefill core: planned at batch {BATCH}, length {PREFILL} in "
+          f"{t_plan:.2f} s; prefill plan {ptable.digest}; gates {gates}")
+    if not all(gates.values()):
+        raise RuntimeError(f"the prefill table does not gate every "
+                           f"projection onto CiM: {gates}")
+    prefill = make_prefill(cfg, prc, ptable)
+    long_prompt = torch.randint(0, cfg.vocab, (1, PREFILL),
+                                generator=torch.Generator().manual_seed(2)
+                                ).to("cuda")
+    prefill(core.params, long_prompt)                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_mod.flash_attention.launches = 0      # the prefill path starts
+    int8_gemm.launches = 0
+    with route_trace() as records:
+        t0 = time.perf_counter()
+        logits = prefill(core.params, long_prompt)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    flash_launches = fa_mod.flash_attention.launches   # ... and ends here
+    prefill_i8 = int8_gemm.launches
+    prefill_peak = torch.cuda.max_memory_allocated()
+    prefill_routes = sorted({(r["label"], r["route"]) for r in records})
+    print(f"prefill forward: {ARCH} full width ({L} layers), 1 x {PREFILL} "
+          f"tokens in {prefill_s!r} s: {PREFILL / prefill_s!r} prefill "
+          f"tokens/s; peak memory {prefill_peak / 2**30!r} GiB; "
+          f"flash_attention launches {flash_launches} (expected {L}), "
+          f"int8_gemm launches {prefill_i8} (expected {calls_per_step}); "
+          f"routes {prefill_routes} [{card}]")
+    if flash_launches != L or prefill_i8 != calls_per_step:
+        raise RuntimeError(f"the prefill launched flash_attention "
+                           f"{flash_launches} and int8_gemm {prefill_i8} "
+                           f"times")
+    if logits.shape != (1, PREFILL, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise RuntimeError(f"bad prefill logits {tuple(logits.shape)}")
+    ref_logits = make_prefill(cfg, RunConfig(attn_impl="flash_jnp"), ptable)(
+        core.params, long_prompt)
+    diff = (logits.float() - ref_logits.float()).abs().max().item()
+    ref_max = ref_logits.float().abs().max().item()
+    agree = (logits.argmax(-1) == ref_logits.argmax(-1)).float().mean().item()
+    print(f"prefill logits, flash kernel vs attn_impl='flash_jnp' (plain "
+          f"torch attention): max|d|={diff!r}, max|ref|={ref_max!r} (tol "
+          f"{LOGIT_TOL}·max|ref|); greedy tokens agree at {agree:.2%} of "
+          f"{PREFILL} positions")
+    if diff > LOGIT_TOL * ref_max:
+        raise RuntimeError("the prefill forward disagrees with flash_jnp")
+    del logits, ref_logits
+    torch.cuda.empty_cache()
+    prof = profile_window(torch, lambda: prefill(core.params, long_prompt))
+    if prof["busy_ms"] > 0:
+        print(f"traced prefill forward (profiler on): wall "
+              f"{prof['wall_ms']!r} ms, device busy {prof['busy_ms']!r} ms, "
+              f"device idle share {1 - prof['busy_ms'] / prof['wall_ms']!r}")
+        for name, us in prof["kernels"][:10]:
+            print(f"  device {us / 1e3!r} ms ({us / 1e3 / prof['busy_ms']:.1%}"
+                  f"): {name[:90]}")
+    else:
+        print("traced prefill forward: the profiler recorded no device time "
+              "(device busy share not measured)")
+    del core, prefill
+    torch.cuda.empty_cache()
+
+    # --- 11. forward vs the token-by-token prefill of the serve -------------
+    gated.reset()
+    step_logits = gated.prefill(prompt)[:, -1].float()
+    fa_mod.flash_attention.launches = 0
+    int8_gemm.launches = 0
+    with torch.inference_mode():
+        fwd_logits, _ = forward(gated.params, prompt, cfg,
+                                RunConfig(attn_impl="pallas", attn_chunk=8),
+                                plan=gated.prefill_plan_table)
+    torch.cuda.synchronize()
+    fwd_logits = fwd_logits[:, -1].float()
+    x_launches = (fa_mod.flash_attention.launches, int8_gemm.launches)
+    diff = (fwd_logits - step_logits).abs().max().item()
+    ref_max = step_logits.abs().max().item()
+    fwd_tok, step_tok = fwd_logits.argmax(-1), step_logits.argmax(-1)
+    agree = int((fwd_tok == step_tok).sum().item())
+    print(f"forward (attn_impl='pallas', attn_chunk=8: the kernel at a "
+          f"{PROMPT}-row block) vs ServeSession.prefill on the serve's "
+          f"{BATCH} x {PROMPT} prompt: launches (flash_attention, int8_gemm) "
+          f"{x_launches}; last-position logits max|d|={diff!r}, "
+          f"max|ref|={ref_max!r} (tol {LOGIT_TOL}·max|ref|: the step path "
+          f"keeps p in f32 over the bf16 cache, the kernel rounds p to bf16, "
+          f"across {L} bf16 layers); greedy next tokens forward "
+          f"{fwd_tok.tolist()}, token by token {step_tok.tolist()}: agree on "
+          f"{agree} of {BATCH} (need {MIN_TOKEN_AGREEMENT})")
+    if x_launches != (L, calls_per_step):
+        raise RuntimeError(f"the cross-check forward launched {x_launches}")
+    if not bool(torch.isfinite(fwd_logits).all()) or (
+            diff > LOGIT_TOL * ref_max or agree < MIN_TOKEN_AGREEMENT):
+        raise RuntimeError("forward and token-by-token prefill disagree")
+
+    # --- 12. result lines ----------------------------------------------------
     kernels = [{
         "name": "int8_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_gemm.cu",
@@ -708,9 +1002,27 @@ def main() -> int:
         "bound_by": ("bytes" if per_step["bytes_ms"] >= per_step["ops_ms"]
                      else "operations"),
         "library_ms": per_step["library_ms"],
+        "path": "decode step",
         "work": f"the {calls_per_step} calls of one {ARCH} decode step at "
-                f"batch {BATCH} (per-shape times x calls per step)"}, {
-        "name": "sweep_eval", "route": "cuda",
+                f"batch {BATCH} (per-shape times x calls per step); "
+                f"launches counted over the gated serve's "
+                f"{PROMPT + NEW} steps"}, {
+        "name": "int8_gemm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/int8_gemm.cu",
+        "replaces": "src/repro/kernels/int8_gemm.py:33",
+        "launches": prefill_i8,
+        "max_abs_err": max(r["max_abs_err"] for r in rows
+                           if r["M"] == PREFILL),
+        "ms": per_fwd["ms"], "plain_ms": per_fwd["plain_ms"],
+        "bound_ms": per_fwd["bound_ms"],
+        "bound_by": ("bytes" if per_fwd["bytes_ms"] >= per_fwd["ops_ms"]
+                     else "operations"),
+        "library_ms": per_fwd["library_ms"],
+        "path": "prefill forward",
+        "work": f"the {calls_per_step} calls of one {ARCH} prefill forward "
+                f"at M = {PREFILL} (per-shape times x calls per forward); "
+                f"launches counted over one forward"}, {
+        "name": "sweep_eval", "route": "cuda", "path": "default campaign",
         "source": "src/repro_torch/kernels/csrc/sweep_eval.cu",
         "replaces": "src/repro/kernels/sweep_eval.py:58",
         "launches": sweep_launches,
@@ -722,7 +1034,35 @@ def main() -> int:
         "library_ms": None,
         "work": f"one launch on {n_big} rows (the sweep_bench batch tiled "
                 f"{SWEEP_TILES}x), exact order mode; bit-equal to the plain "
-                f"version; launches counted over the default-grid campaign"}]
+                f"version; launches counted over the default-grid campaign"}, {
+        "name": "flash_attention", "route": "cuda", "path": "prefill forward",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:21",
+        "launches": flash_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in frows),
+        "ms": flash_ms, "plain_ms": flash_plain_ms,
+        "bound_ms": flash_bound_ms,
+        "bound_by": ("bytes" if flash_bytes_ms >= flash_ops_ms
+                     else "operations"),
+        "library_ms": flash_lib_ms,
+        "work": f"one call at (1, {PREFILL}, {cfg.n_heads}/{cfg.n_kv_heads}, "
+                f"{dh}) bf16 causal: one layer of the {ARCH} prefill "
+                f"({L} per forward); launches counted over one forward"}, {
+        "name": "decode_attention", "route": "cuda",
+        "path": "ops.decode_attention",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:20",
+        "launches": decode_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in drows),
+        "ms": decode_ms, "plain_ms": decode_plain_ms,
+        "bound_ms": decode_bound_ms,
+        "bound_by": ("bytes" if decode_bytes_ms >= decode_ops_ms
+                     else "operations"),
+        "library_ms": decode_lib_ms,
+        "work": f"one call at ({BATCH}, {DECODE_S}, {cfg.n_heads}/"
+                f"{cfg.n_kv_heads}, {dh}) bf16, length {DECODE_S} ({ARCH} "
+                f"decode_32k); its main path is one call of the public "
+                f"wrapper ops.decode_attention (no model calls it)"}]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -4,16 +4,31 @@
   (replaces the TPU kernel `repro/kernels/int8_gemm.py:_kernel_os`).
 * `sweep_eval` — the planner's sweep row evaluator behind
   backend="pallas" (replaces `repro/kernels/sweep_eval.py:_sweep_kernel`).
+* `flash_attention` — blocked causal attention of the prefill forward
+  with `attn_impl="pallas"` (replaces
+  `repro/kernels/flash_attention.py:_kernel`).
+* `decode_attention` — flash-decoding of one query against a KV cache
+  (replaces `repro/kernels/decode_attention.py:_kernel`).
 
-`build.py` compiles each CUDA source with nvcc at first use on a machine
-with a card; importing this package compiles nothing.  As attributes of
-the package, `int8_gemm` and `sweep_eval` are the wrapper functions;
-their modules are reached as `repro_torch.kernels.int8_gemm` and
-`repro_torch.kernels.sweep_eval` through the import system.
+`ops` holds the public wrappers in the JAX package's (b, s, heads, d)
+layouts.  `build.py` compiles each CUDA source with nvcc at first use on a
+machine with a card; importing this package compiles nothing.  As
+attributes of the package, the four kernel names are the wrapper
+functions; their modules are reached as `repro_torch.kernels.<name>`
+through the import system (`importlib.import_module`).
 """
+from . import ops
+from .decode_attention import (decode_attention, decode_attention_check,
+                               decode_attention_ref)
+from .flash_attention import (flash_attention, flash_attention_check,
+                              flash_attention_ref)
 from .int8_gemm import int8_gemm, int8_gemm_ref
 from .sweep_eval import (SWEEP_OUT_FIELDS, kernel_status, sweep_eval,
                          sweep_eval_ref)
 
-__all__ = ["int8_gemm", "int8_gemm_ref", "SWEEP_OUT_FIELDS",
-           "kernel_status", "sweep_eval", "sweep_eval_ref"]
+__all__ = ["ops", "int8_gemm", "int8_gemm_ref", "flash_attention",
+           "flash_attention_ref", "flash_attention_check",
+           "decode_attention", "decode_attention_ref",
+           "decode_attention_check",
+           "SWEEP_OUT_FIELDS", "kernel_status", "sweep_eval",
+           "sweep_eval_ref"]

@@ -10,6 +10,7 @@ scans).
 
 Entry points:
   init(gen, cfg, device)                     -> params
+  forward(params, tokens, cfg, rc, plan=plan) -> logits, aux  (prefill)
   init_cache(cfg, rc, batch, max_len, device) -> cache (list of dicts)
   decode_step(params, cache, tok, pos, cfg, rc, plan) -> logits, cache
 
@@ -17,8 +18,8 @@ Unlike the JAX package, which returns a new cache, `decode_step` writes
 the new token's K/V into `cache` in place and returns the same object.
 
 Not ported yet: the other families (moe, ssm, hybrid, vlm, audio),
-`forward`, `kv_cache_dtype="int8"`, ragged per-slot positions and the
-paged cache (`block_tables`); they raise NotImplementedError.
+`kv_cache_dtype="int8"`, ragged per-slot positions and the paged cache
+(`block_tables`); they raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ import math
 import torch
 
 from ..configs.base import ModelConfig, RunConfig
-from .attention import decode_attend
+from .attention import attend, decode_attend
 from .layers import (apply_rope, attn_out_proj, dense_init, dtype_of,
                      embed_init, linear, qkv_proj, rmsnorm, swiglu)
 
@@ -116,7 +117,7 @@ def init_cache(cfg: ModelConfig, rc: RunConfig, batch: int, max_len: int,
             for _ in period_slots(cfg)]
 
 
-# --- decode ---------------------------------------------------------------------
+# --- forward (prefill) and decode --------------------------------------------
 
 def _layer(tree, i: int):
     """Layer i of a stacked parameter subtree (views, no copies)."""
@@ -129,6 +130,44 @@ def _lm_logits(params, x, cfg: ModelConfig, plan=None):
     """LM head ("lm_head"); tied embeddings reuse the float embedding."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return linear(head, x, "lm_head", plan)
+
+
+def forward(params, tokens, cfg: ModelConfig, rc: RunConfig,
+            image_embeds=None, plan=None):
+    """The full-sequence forward (prefill).  tokens: (b, l) int.  Returns
+    (logits (b, l, vocab), aux), aux = 0.0 (the dense family has no
+    auxiliary loss).  `plan` (a KernelPlanTable) gates quantized
+    projections per label, as in `decode_step`; attention runs
+    `attend(impl=rc.attn_impl)` on positions arange(l).
+
+    The JAX package's `remat` and sharding constraints are training and
+    mesh concerns and are not applied here; the layer loop is a Python
+    loop over periods (so `scan_unroll` has nothing to unroll).  Cross
+    attention (`image_embeds`) and the other families raise
+    NotImplementedError."""
+    _check_family(cfg)
+    if image_embeds is not None:
+        raise NotImplementedError("cross attention (vlm image_embeds) is not "
+                                  "ported yet (ROADMAP.md)")
+    b, l = tokens.shape
+    x = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+    nh, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
+    pos = torch.arange(l, device=x.device)[None, :]
+    slot_params = params["slots"][0]
+    for i in range(n_periods(cfg)):
+        sp = _layer(slot_params, i)
+        h = rmsnorm(sp["norm1"], x, cfg.rmsnorm_eps)
+        q, k, v = qkv_proj(sp["attn"], h, nh, kvh, dh, plan)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+        o = attend(q, k, v, impl=rc.attn_impl, chunk=rc.attn_chunk,
+                   window=cfg.sliding_window, block_causal=rc.block_causal,
+                   q_chunk=rc.attn_q_chunk)
+        x = x + attn_out_proj(sp["attn"], o.reshape(b, l, nh * dh), plan)
+        h = rmsnorm(sp["norm2"], x, cfg.rmsnorm_eps)
+        x = x + swiglu(sp["mlp"], h, plan)
+    x = rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps)
+    return _lm_logits(params, x, cfg, plan), 0.0
 
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig,

@@ -7,6 +7,7 @@ policy: the plan is built before the first step and frozen into a static
 kernel, ungated ones the plain torch matmul (prefill runs the same
 per-token step under the prefill table).  `use_cim_for(label)` exposes
 the per-GEMM gate; `route_report()` reports the route each label runs.
+`make_prefill` is the full-sequence prefill forward under a plan table.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Any, Callable
 import torch
 
 from ..configs.base import ModelConfig, RunConfig
-from ..models import decode_step, init_cache
+from ..models import decode_step, forward, init_cache
 from ..models.layers import CIM_ROUTE
 from ..quant import KernelPlanTable
 from .core import DecodeCore, sample_token
@@ -29,6 +30,21 @@ def make_serve_step(cfg: ModelConfig, rc: RunConfig,
     def step(params, cache, tokens, pos):
         return decode_step(params, cache, tokens, pos, cfg, rc, plan=plan)
     return step
+
+
+def make_prefill(cfg: ModelConfig, rc: RunConfig,
+                 plan: KernelPlanTable | None = None) -> Callable:
+    """(params, tokens[, image_embeds]) -> logits — the prefill forward.
+
+    Fills no cache (as in the JAX package).  Pass the *prefill* phase's
+    plan table (DecodeCore.prefill_plan_table): each serving phase is gated
+    by its own What/When/Where verdicts.  Runs under inference mode."""
+    def run(params, tokens, image_embeds=None):
+        with torch.inference_mode():
+            logits, _ = forward(params, tokens, cfg, rc,
+                                image_embeds=image_embeds, plan=plan)
+        return logits
+    return run
 
 
 def cim_fraction(routes: dict) -> float:

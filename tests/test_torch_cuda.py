@@ -10,22 +10,43 @@ orders, so max|Δ| ≤ 1e-4 · max|ref|.  The sweep kernel repeats its plain
 version operation for operation, so it is held bit for bit (NaN
 positions included), and so are the planner's verdicts and the campaign
 front it feeds, against the golden CSVs.
+
+The attention kernels are held element by element by
+`flash_attention_check` / `decode_attention_check`
+(kernels/flash_attention.py:compare_to_plain): in f32 |Δ| ≤ 1e-5 ·
+max|ref| (the same f32 recurrence, other summation orders).  In bf16 both
+sides compute in f32 and round the output once, so an element may differ
+by one bf16 ulp, 1.02 · 2**-7 · |ref|, plus 2**-12 · (P|v|) for f32 sums
+in other orders (P the plain softmax weights); the flash kernel also
+rounds p to bf16 (unit roundoff 2**-8) for its PV product, which moves an
+element by at most 2**-8 · (P|v|).  The shapes are those of
+chip_smoke.py's FLASH_CASES and DECODE_CASES and edge cases of their own.
+Model level (the reduced prefill on the card against the same forward on
+the CPU): 1e-5 of max|ref| in f32, 2**-6 in bf16, as
+tests/test_torch_model.py.
 """
 import csv
+import importlib.util
 import os
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import ARCHS, SHAPES
+from repro_torch.configs import ARCHS, SHAPES, RunConfig, reduced
 from repro_torch.core import (CampaignSpec, SweepEngine, gemms_of_model,
                               phase_gemms_of_model, plan_workload,
-                              run_campaign, standard_configs)
+                              plan_workload_by_phase, run_campaign,
+                              standard_configs)
 from repro_torch.core.sweep import candidate_cols
 from repro_torch.core.vectorized import FLAT_FIELDS
-from repro_torch.kernels import (int8_gemm, int8_gemm_ref, sweep_eval,
+from repro_torch.kernels import (decode_attention, decode_attention_check,
+                                 flash_attention, flash_attention_check,
+                                 flash_attention_ref, int8_gemm,
+                                 int8_gemm_ref, ops, sweep_eval,
                                  sweep_eval_ref)
+from repro_torch.models import forward, init
+from repro_torch.quant import KernelPlanTable, quantize_model_params
 
 pytestmark = pytest.mark.cuda
 
@@ -83,6 +104,19 @@ def test_kernel_strided_x(cuda):
     wide = torch.zeros((8, 520), dtype=torch.bfloat16, device=cuda)
     wide[:, 3:515] = x
     _check(wide[:, 3:515], q, s)
+
+
+@pytest.mark.parametrize("m", [129, 2000, 2048])
+@pytest.mark.parametrize("kn", FULL_WIDTH[:4],
+                         ids=lambda t: "x".join(map(str, t)))
+def test_kernel_matches_plain_prefill_rows(cuda, kn, m):
+    """More than 128 rows: one grid row of 128 per block row, the last
+    one ragged (the prefill runs M = 2048)."""
+    _check(*_inputs(m, *kn, torch.bfloat16, cuda, seed=m))
+
+
+def test_kernel_matches_plain_prefill_lm_head(cuda):
+    _check(*_inputs(2048, *FULL_WIDTH[4], torch.bfloat16, cuda, seed=1))
 
 
 def test_launch_counter(cuda):
@@ -206,3 +240,167 @@ def test_golden_campaign_front_on_card(cuda, backend, chunk_rows):
     with open(os.path.join(GOLDEN, "campaign_front.csv"), newline="") as f:
         assert result.csv_text() == f.read()
     assert engine.cache_info()["chunks"]["evaluated"] >= 2
+
+
+# --- the attention kernels -------------------------------------------------
+
+def _attn_inputs(shapes, dtype, device, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(s, generator=gen).to(dtype).to(device)
+            for s in shapes]
+
+
+def _attn_ok(result: dict) -> None:
+    assert result["ok"], result
+
+
+def _smoke_cases():
+    """chip_smoke.py's attention shapes (a script beside the tests, loaded
+    by path: it imports nothing at module level but the standard library)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), "..",
+                                   "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.FLASH_CASES, smoke.DECODE_CASES
+
+
+SMOKE_FLASH, SMOKE_DECODE = _smoke_cases()
+# (b, sq, sk, H, KV, d, window): the smoke's cases, then edge cases (no
+# GQA, a 16-row block, ragged sq and sk, a one-key window)
+FLASH_CASES = SMOKE_FLASH + [(1, 512, 512, 4, 4, 64, 100),
+                             (2, 16, 16, 4, 2, 16, 0),
+                             (1, 200, 328, 4, 2, 32, 0),
+                             (1, 64, 64, 8, 1, 128, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    b, sq, sk, h, kv, d, window = case
+    q, k, v = _attn_inputs([(b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)],
+                           dtype, cuda, seed=sq + h)
+    before = flash_attention.launches
+    got = ops.flash_attention(q, k, v, window=window, block_q=8, block_kv=8)
+    assert flash_attention.launches == before + 1
+    _attn_ok(flash_attention_check(ops.fold(got), ops.fold(q), ops.fold(k),
+                                   ops.fold(v), True, window))
+
+
+def test_flash_kernel_not_causal_and_masked_rows(cuda):
+    """causal=False with a window, and sq > sk (rows whose position is
+    negative see no key: the mean of v, as the reference gives)."""
+    q, k, v = _attn_inputs([(4, 192, 64), (2, 192, 64), (2, 192, 64)],
+                           torch.bfloat16, cuda, seed=3)
+    _attn_ok(flash_attention_check(
+        flash_attention(q, k, v, causal=False, window=32, block_q=64,
+                        block_kv=64), q, k, v, False, 32))
+    k, v = k[:, :64].contiguous(), v[:, :64].contiguous()
+    _attn_ok(flash_attention_check(
+        flash_attention(q, k, v, block_q=64, block_kv=64), q, k, v))
+
+
+# (b, S, H, KV, d): the smoke's cases, then edge cases (rep 4, rep 32,
+# no GQA at d = 16)
+DECODE_CASES = SMOKE_DECODE + [(2, 300, 8, 2, 64), (2, 256, 32, 1, 32),
+                               (1, 128, 4, 4, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", DECODE_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_decode_kernel_matches_plain(cuda, case, dtype):
+    b, S, h, kv, d = case
+    q, kc, vc = _attn_inputs([(b, 1, h, d), (b, S, kv, d), (b, S, kv, d)],
+                             dtype, cuda, seed=S)
+    for length in (0, 7, min(300, S), S):
+        before = decode_attention.launches
+        got = ops.decode_attention(q, kc, vc, length)
+        assert decode_attention.launches == before + 1
+        _attn_ok(decode_attention_check(ops.fold(got), ops.fold(q),
+                                        ops.fold(kc), ops.fold(vc), length))
+
+
+def test_decode_kernel_reads_length_on_the_card(cuda):
+    q, kc, vc = _attn_inputs([(2, 1, 8, 64), (2, 512, 2, 64), (2, 512, 2, 64)],
+                             torch.bfloat16, cuda, seed=4)
+    for n in (300, 5):
+        length = torch.tensor(n, device=cuda)
+        assert torch.equal(ops.decode_attention(q, kc, vc, length),
+                           ops.decode_attention(q, kc, vc, n))
+
+
+def test_attention_launch_counters(cuda):
+    q, k, v = _attn_inputs([(4, 64, 32), (2, 64, 32), (2, 64, 32)],
+                           torch.bfloat16, cuda)
+    before = (flash_attention.launches, decode_attention.launches)
+    flash_attention(q, k, v)
+    decode_attention(q[:, :1].contiguous(), k, v, 9)
+    flash_attention(q.cpu(), k.cpu(), v.cpu())       # plain: no launch
+    decode_attention(q[:, :1].cpu(), k.cpu(), v.cpu(), 9)
+    flash_attention_ref(q, k, v)
+    assert (flash_attention.launches,
+            decode_attention.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_attention_wrappers_reject_bad_inputs(cuda):
+    """On a CUDA tensor the wrappers launch or raise: no plain fallback."""
+    q, k, v = _attn_inputs([(4, 64, 32), (2, 64, 32), (2, 64, 32)],
+                           torch.bfloat16, cuda)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        flash_attention(q, k.float(), v)
+    with pytest.raises(ValueError, match="head widths"):
+        flash_attention(q[..., :24].contiguous(), k[..., :24].contiguous(),
+                        v[..., :24].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(0, 1).contiguous().transpose(0, 1), k, v)
+    with pytest.raises(ValueError, match="share a device"):
+        flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="head widths"):
+        decode_attention(q[:, :1, :24].contiguous(), k[..., :24].contiguous(),
+                         v[..., :24].contiguous(), 5)
+    with pytest.raises(ValueError, match="lives on"):
+        decode_attention(q[:, :1].contiguous(), k, v, torch.tensor(5))
+    with pytest.raises(TypeError):
+        decode_attention(q[:, :1].contiguous(), k, v,
+                         torch.tensor(5.0, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_forward_on_card_matches_cpu(cuda, dtype):
+    """The reduced qwen2-7b prefill (INT8 params, prefill table forced
+    all-CiM, attn_impl="pallas" reaching the flash kernel) on the card
+    against the same forward on the CPU (the plain versions)."""
+    import dataclasses
+    cfg = dataclasses.replace(reduced(ARCHS["qwen2-7b"]), param_dtype=dtype,
+                              compute_dtype=dtype)
+    rc = RunConfig(attn_impl="pallas", attn_chunk=8)
+    params = quantize_model_params(
+        init(torch.Generator().manual_seed(0), cfg, device="cpu"))
+    table = KernelPlanTable.from_decisions(plan_workload_by_phase(
+        phase_gemms_of_model(cfg, 16, 2), backend="scalar")["prefill"],
+        model_name=cfg.name)
+    for lab in table.labels:
+        if not table.use_cim(lab):
+            table = table.with_flip(lab)
+    tokens = torch.randint(0, cfg.vocab, (2, 16),
+                           generator=torch.Generator().manual_seed(1))
+    want, _ = forward(params, tokens, cfg, rc, plan=table)
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_card(v) for v in tree]
+        return tree.to(cuda)
+    before = (flash_attention.launches, int8_gemm.launches)
+    got, _ = forward(to_card(params), tokens.to(cuda), cfg, rc, plan=table)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before[0] == cfg.n_layers
+    assert int8_gemm.launches - before[1] == 7 * cfg.n_layers + 1
+    err = (got.float().cpu() - want.float()).abs().max().item()
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -6
+    assert err <= tol * want.float().abs().max().item(), err
