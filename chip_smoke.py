@@ -16,11 +16,20 @@ design-space campaigns.  In order it:
 2. builds the four kernels from `src/repro_torch/kernels/csrc` with nvcc,
    the four nvcc runs started together, and prints their build times and
    ptxas register/smem/spill lines;
-3. holds the INT8 GEMM kernel against its plain torch version at every
-   qwen2-7b projection shape (M = 8, 128 and the prefill's 2048, bf16) and
-   at ragged shapes, with max|Δ| ≤ 1e-4·max|ref|, and times kernel, plain
-   version, the bound and a yardstick (`torch.matmul` against a
-   pre-dequantized bf16 weight, which the port never calls);
+3. holds the INT8 GEMM kernels against their plain torch version at
+   every qwen2-7b projection shape (M = 8, 32, 128, 129 and the
+   prefill's 2048, bf16; `dataflow="ws"` at M = 8) and at ragged shapes
+   in both dataflows, with max|Δ| ≤ 1e-4·max|ref| and the bf16 output
+   equal to the f32 output cast; each row names the design that ran
+   (`int8_gemm.plan_gemm`: A = TMA + wgmma, B = weight-stationary
+   split-K, fma = f32 x); times kernel, plain version, the bound and a
+   yardstick (`torch.matmul` against a pre-dequantized bf16 weight, which
+   the port never calls) with the output in x's dtype, as the gated
+   route asks for it, by CUDA events around back-to-back calls (host
+   launch cost included, as for every kernel here) and by the profiler's
+   device time per call (`device_ms`, `library_device_ms`); and runs the
+   197 calls of one decode step through `ops.int8_matmul(dataflow="ws")`,
+   counting their launches;
 4. holds the flash-attention kernel against its plain version (every
    case in f32 and bf16; GQA 28/4 and 8/1; sq = sk and sq < sk; a window;
    d = 64 and 128), element by element within the bounds of ATTN_TOL_DOC,
@@ -49,14 +58,16 @@ design-space campaigns.  In order it:
 9. serves batch 8 (16-token prompt, 16 greedy tokens) with gating on,
    prints the plan-cache telemetry of the batched planner, checks the
    route report (all 8 labels on the kernel) and that the kernel ran
-   exactly (16 + 16) x 197 times, then serves the same weights ungated
+   exactly (16 + 16) x 197 times, all on design B, then serves the same
+   weights ungated
    (0 launches) and compares the first-step logits;
 10. runs the prefill forward on the serve's INT8 weights: a `DecodeCore`
    planned at batch 8 and length 2048, `make_prefill(cfg,
    RunConfig(attn_impl="pallas"), core.prefill_plan_table)` on one
    (1, 2048) prompt; checks that the prefill table gates all 8 labels,
    that the forward launched flash_attention exactly 28 times and
-   int8_gemm exactly 197 times, and that its logits agree with the same
+   int8_gemm exactly 197 times, all on design A, and that its logits
+   agree with the same
    forward on `attn_impl="flash_jnp"` (plain torch attention); prints the
    wall time, prefill tokens/s, peak memory and a traced forward's device
    time by kernel;
@@ -69,10 +80,12 @@ design-space campaigns.  In order it:
    `{"ok": true, "device": {...}}`.
 
 Each kernel's launch count in that line comes from its own main path
-(the default-grid campaign for sweep_eval, the gated serve and the
-prefill forward for int8_gemm, which has one entry for each, the prefill
-forward for flash_attention, one call of the public wrapper for
-decode_attention), counted from 0 just before that path ran.
+(the default-grid campaign for sweep_eval; for int8_gemm, which has
+three entries, each with its design: the gated serve, the prefill
+forward, and the 197 calls of one decode step through
+`ops.int8_matmul(dataflow="ws")`; the prefill forward for
+flash_attention; one call of the public wrapper for decode_attention),
+counted from 0 just before that path ran.
 
 Any failed phase raises and exits non-zero; so does a machine with no
 CUDA device or a directory without the port.
@@ -157,43 +170,82 @@ def time_ms(torch, fn, n_inputs: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(torch, fn, n_inputs: int, calls: int = 24) -> float:
+    """Mean device time of fn(i) per call: the summed durations of the
+    device activity torch.profiler records over `calls` calls, cycling
+    over n_inputs input copies.  Unlike time_ms it leaves out the time the
+    device waits for the host between small launches."""
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(2):
+        fn(i % n_inputs)
+    torch.cuda.synchronize()
+    for _ in range(3):      # a window that lost its records is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                fn(i % n_inputs)
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if getattr(e.device_type, "name",
+                            str(e.device_type)).endswith("CUDA")]
+        if len(spans) >= calls:          # every call launches >= 1 kernel
+            return sum(spans) / 1e3 / calls
+    raise RuntimeError("the profiler recorded fewer device activities than "
+                       "calls in three windows")
+
+
 def bound_parts_ms(m: int, k: int, n: int, x_bytes: int,
-                   peak_ops: float) -> tuple[float, float]:
-    """The two floors of one call: each input read once and the f32
-    output written once at HBM rate, and 2·M·N·K operations at the peak
-    rate; the call's bound is the larger."""
-    moved = m * k * x_bytes + k * n + 4 * n + 4 * m * n
+                   peak_ops: float, y_bytes: int = 4) -> tuple[float, float]:
+    """The two floors of one call: each input read once and the output
+    written once at HBM rate, and 2·M·N·K operations at the peak rate; the
+    call's bound is the larger."""
+    moved = m * k * x_bytes + k * n + 4 * n + y_bytes * m * n
     return 1e3 * moved / HBM_BYTES_PER_S, 1e3 * 2.0 * m * n * k / peak_ops
 
 
-def check_kernel(torch, int8_gemm, int8_gemm_ref, m, k, n, dtype) -> dict:
-    """Kernel vs plain version at one shape, and the kernel's, the plain
-    version's and the yardstick's times."""
+def check_kernel(torch, int8_gemm, int8_gemm_ref, m, k, n, dtype,
+                 dataflow="os") -> dict:
+    """Kernel vs plain version at one shape (f32 output, and the output in
+    x's dtype, as the gated route asks for it, bit-equal to the f32 one
+    cast), the design that ran, and the kernel's, the plain version's and
+    the yardstick's times with the output in x's dtype."""
     gen = torch.Generator(device="cuda").manual_seed(m * 7919 + k + n)
     x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
     q = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
                       dtype=torch.int8)
     s = torch.rand(n, generator=gen, device="cuda") * 0.02 + 1e-3
-    got = int8_gemm(x, q, s)
+    before = dict(int8_gemm.launches_by_design)
+    got = int8_gemm(x, q, s, dataflow=dataflow)
+    design = "+".join(d for d, c in int8_gemm.launches_by_design.items()
+                      if c != before[d])
     want = int8_gemm_ref(x, q, s)
+    same_cast = torch.equal(int8_gemm(x, q, s, out_dtype=dtype,
+                                      dataflow=dataflow), got.to(dtype))
     torch.cuda.synchronize()
     ref_max = want.abs().max().item()
     err = (got - want).abs().max().item()
     row = {"M": m, "K": k, "N": n, "dtype": str(dtype).split(".")[-1],
+           "dataflow": dataflow, "design": design,
            "max_abs_err": err, "max_rel_err": err / ref_max,
+           "out_cast_equal": same_cast,
            "ok": bool(torch.isfinite(got).all().item())
-           and err <= TOL * ref_max}
+           and err <= TOL * ref_max and same_cast}
     peak = 989e12 if dtype == torch.bfloat16 else 67e12
-    row["bytes_ms"], row["ops_ms"] = bound_parts_ms(m, k, n,
-                                                    x.element_size(), peak)
+    row["bytes_ms"], row["ops_ms"] = bound_parts_ms(
+        m, k, n, x.element_size(), peak, x.element_size())
     row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
     # weight copies cycled so the weights come from HBM, not L2 (capped:
     # the smallest shapes stay L2-resident, as they would in a model)
     copies = min(MAX_COPIES, math.ceil(2 * L2_BYTES / (k * n)))
     qs = [q] + [q.clone() for _ in range(copies - 1)]
-    row["ms"] = time_ms(torch, lambda i: int8_gemm(x, qs[i], s), copies)
-    row["plain_ms"] = time_ms(
-        torch, lambda i: int8_gemm_ref(x, qs[i], s), copies)
+    def kern(i):
+        return int8_gemm(x, qs[i], s, out_dtype=dtype, dataflow=dataflow)
+
+    def plain(i):
+        return int8_gemm_ref(x, qs[i], s, dtype)
+
+    row["ms"] = time_ms(torch, kern, copies)
+    row["device_ms"] = device_ms(torch, kern, copies)
+    row["plain_ms"] = time_ms(torch, plain, copies)
     del qs
     wb = (q.to(dtype) * s.to(dtype)).to(dtype)
     row["w_bytes_x"] = wb.element_size()
@@ -202,9 +254,25 @@ def check_kernel(torch, int8_gemm, int8_gemm_ref, m, k, n, dtype) -> dict:
     ws = [wb] + [wb.clone() for _ in range(lib_copies - 1)]
     row["library_ms"] = time_ms(
         torch, lambda i: torch.matmul(x, ws[i]), lib_copies)
+    row["library_device_ms"] = device_ms(
+        torch, lambda i: torch.matmul(x, ws[i]), lib_copies)
     del ws, wb
     torch.cuda.empty_cache()
     return row
+
+
+def top2_gaps(logits) -> list[float]:
+    """Per batch lane, the gap between the two largest logits: a greedy
+    token whose gap is below the two routes' difference can flip."""
+    top = logits.reshape(logits.shape[0], -1).topk(2, dim=-1).values
+    return [round(v, 5) for v in (top[:, 0] - top[:, 1]).tolist()]
+
+
+def reset_counts(int8_gemm) -> None:
+    """Set int8_gemm's launch counts, in all and per design, to 0."""
+    int8_gemm.launches = 0
+    for key in int8_gemm.launches_by_design:
+        int8_gemm.launches_by_design[key] = 0
 
 
 def profile_window(torch, fn) -> dict:
@@ -440,46 +508,97 @@ def main() -> int:
                    (cfg.d_ff, d): L,                      # mlp-down
                    (d, cfg.vocab): 1}                     # lm_head
     calls_per_step = sum(step_shapes.values())
-    cases = [(m, k, n, torch.bfloat16) for m in (BATCH, 128, PREFILL)
+    cases = [(m, k, n, torch.bfloat16)
+             for m in (BATCH, 32, 128, 129, PREFILL)
              for (k, n) in step_shapes]
-    cases += [(m, k, n, dt) for (m, k, n) in RAGGED
-              for dt in (torch.bfloat16, torch.float32)]
+    cases += [(BATCH, k, n, torch.bfloat16, "ws") for (k, n) in step_shapes]
+    cases += [(m, k, n, dt, df) for (m, k, n) in RAGGED
+              for dt in (torch.bfloat16, torch.float32) for df in ("os", "ws")]
     cases.append((BATCH, d, d, torch.float32))
     rows = [check_kernel(torch, int8_gemm, int8_gemm_ref, *case)
             for case in cases]
     for r in rows:
-        print(f"int8_gemm M={r['M']} K={r['K']} N={r['N']} {r['dtype']}: "
+        print(f"int8_gemm M={r['M']} K={r['K']} N={r['N']} {r['dtype']} "
+              f"dataflow={r['dataflow']} design {r['design']}: "
               f"max|d|={r['max_abs_err']!r} max|d|/max|ref|="
-              f"{r['max_rel_err']!r} (tol {TOL}) "
-              f"{'ok' if r['ok'] else 'FAIL'} | kernel {r['ms']!r} ms, "
-              f"bound {r['bound_ms']!r} ms ({r['bound_ms'] / r['ms']:.1%} of "
-              f"bound) | plain {r['plain_ms']!r} ms | library_ms "
-              f"{r['library_ms']!r} ms (torch.matmul on a pre-dequantized "
-              f"{r['dtype']} weight: {r['w_bytes_x']}x the int8 weight "
-              f"bytes)")
+              f"{r['max_rel_err']!r} (tol {TOL}), {r['dtype']} output == "
+              f"f32 output cast {r['out_cast_equal']} "
+              f"{'ok' if r['ok'] else 'FAIL'} | CUDA-event times over "
+              f"back-to-back calls (host launch cost included): kernel "
+              f"{r['ms']!r} ms, bound {r['bound_ms']!r} ms "
+              f"({r['bound_ms'] / r['ms']:.1%} of bound) | plain "
+              f"{r['plain_ms']!r} ms | library_ms {r['library_ms']!r} ms "
+              f"(torch.matmul on a pre-dequantized {r['dtype']} weight: "
+              f"{r['w_bytes_x']}x the int8 weight bytes) | profiler device "
+              f"times: kernel {r['device_ms']!r} ms "
+              f"({r['bound_ms'] / r['device_ms']:.1%} of bound), library "
+              f"{r['library_device_ms']!r} ms")
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise RuntimeError(f"int8_gemm disagrees with its plain version: "
                            f"{bad}")
-    at_batch = {(r["K"], r["N"]): r for r in rows
-                if r["M"] == BATCH and r["dtype"] == "bfloat16"}
-    per_step = {key: sum(cnt * at_batch[kn][key]
-                         for kn, cnt in step_shapes.items())
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                            "bytes_ms", "ops_ms")}
-    print(f"int8_gemm per decode step at batch {BATCH} ({calls_per_step} "
-          f"calls): kernel {per_step['ms']!r} ms, weight-bytes bound "
-          f"{per_step['bound_ms']!r} ms, plain {per_step['plain_ms']!r} ms,"
-          f" library_ms {per_step['library_ms']!r} ms")
-    at_prefill = {(r["K"], r["N"]): r for r in rows if r["M"] == PREFILL}
-    per_fwd = {key: sum(cnt * at_prefill[kn][key]
-                        for kn, cnt in step_shapes.items())
+
+    def per_call_sum(m, dataflow):
+        at = {(r["K"], r["N"]): r for r in rows
+              if r["M"] == m and r["dtype"] == "bfloat16"
+              and r["dataflow"] == dataflow}
+        out = {key: sum(cnt * at[kn][key] for kn, cnt in step_shapes.items())
                for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                           "bytes_ms", "ops_ms")}
+                           "bytes_ms", "ops_ms", "device_ms",
+                           "library_device_ms")}
+        out["design"] = "+".join(sorted({at[kn]["design"]
+                                         for kn in step_shapes}))
+        out["max_abs_err"] = max(at[kn]["max_abs_err"] for kn in step_shapes)
+        return out
+
+    per_step = per_call_sum(BATCH, "os")
+    ws_step = per_call_sum(BATCH, "ws")
+    for name, agg in (("int8_gemm", per_step),
+                      ("ops.int8_matmul(dataflow='ws')", ws_step)):
+        print(f"{name} per decode step at batch {BATCH} ({calls_per_step} "
+              f"calls, design {agg['design']}): kernel {agg['ms']!r} ms, "
+              f"weight-bytes bound {agg['bound_ms']!r} ms "
+              f"({agg['bound_ms'] / agg['ms']:.1%} of bound), plain "
+              f"{agg['plain_ms']!r} ms, library_ms {agg['library_ms']!r} ms "
+              f"(CUDA-event times); device times: kernel "
+              f"{agg['device_ms']!r} ms "
+              f"({agg['bound_ms'] / agg['device_ms']:.1%} of bound), library "
+              f"{agg['library_device_ms']!r} ms [{card}]")
+    # the ws main path: the 197 calls of one decode step through the
+    # public wrapper, counted from 0
+    ws_inputs = []
+    for (k, n), cnt in step_shapes.items():
+        gen = torch.Generator(device="cuda").manual_seed(k + n)
+        ws_inputs.append((torch.randn((BATCH, k), generator=gen,
+                                      device="cuda").to(torch.bfloat16),
+                          torch.randint(-127, 128, (k, n), generator=gen,
+                                        device="cuda", dtype=torch.int8),
+                          torch.rand(n, generator=gen, device="cuda") * 0.02
+                          + 1e-3, cnt))
+    reset_counts(int8_gemm)
+    for x_, q_, s_, cnt in ws_inputs:
+        for _ in range(cnt):
+            y_ = ops.int8_matmul(x_, q_, s_, dataflow="ws")
+    torch.cuda.synchronize()
+    ws_launches = int8_gemm.launches
+    ws_by_design = dict(int8_gemm.launches_by_design)
+    print(f"ops.int8_matmul(dataflow='ws') over the {calls_per_step} calls "
+          f"of one decode step at batch {BATCH}: launches {ws_launches}, by "
+          f"design {ws_by_design}")
+    if ws_launches != calls_per_step or ws_by_design["B"] != calls_per_step \
+            or not bool(torch.isfinite(y_).all()):
+        raise RuntimeError(f"the ws path launched {ws_by_design}")
+    del ws_inputs, y_
+    torch.cuda.empty_cache()
+    per_fwd = per_call_sum(PREFILL, "os")
     print(f"int8_gemm per prefill forward at M = {PREFILL} ({calls_per_step}"
-          f" calls): kernel {per_fwd['ms']!r} ms, bound (operations) "
-          f"{per_fwd['bound_ms']!r} ms, plain {per_fwd['plain_ms']!r} ms, "
-          f"library_ms {per_fwd['library_ms']!r} ms [{card}]")
+          f" calls, design {per_fwd['design']}): kernel {per_fwd['ms']!r} "
+          f"ms, bound (operations) {per_fwd['bound_ms']!r} ms "
+          f"({per_fwd['bound_ms'] / per_fwd['ms']:.1%} of bound), plain "
+          f"{per_fwd['plain_ms']!r} ms, library_ms {per_fwd['library_ms']!r}"
+          f" ms (CUDA-event times); device times: kernel "
+          f"{per_fwd['device_ms']!r} ms, library "
+          f"{per_fwd['library_device_ms']!r} ms [{card}]")
 
     # --- 4. flash attention vs plain version; timed at the prefill shape -----
     frows = check_flash(torch, ops, fa_mod)
@@ -815,12 +934,13 @@ def main() -> int:
     gated.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    int8_gemm.launches = 0
+    reset_counts(int8_gemm)
     t0 = time.perf_counter()
     tokens = gated.generate(prompt, NEW)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = int8_gemm.launches
+    serve_by_design = dict(int8_gemm.launches_by_design)
     peak = torch.cuda.max_memory_allocated()
     steps = PROMPT + NEW
     expected = steps * calls_per_step
@@ -831,8 +951,9 @@ def main() -> int:
           f"({BATCH * steps / elapsed!r} tokens/s over all steps); weight-"
           f"bytes floor {per_step['bound_ms']!r} ms/step; peak memory "
           f"{peak / 2**30!r} GiB; int8_gemm launches {launches} (expected "
-          f"{steps} x {calls_per_step} = {expected}) [{card}]")
-    if launches != expected:
+          f"{steps} x {calls_per_step} = {expected}), by design "
+          f"{serve_by_design} [{card}]")
+    if launches != expected or serve_by_design["B"] != expected:
         raise RuntimeError(f"int8_gemm launched {launches} times, expected "
                            f"{expected}")
     if tokens.shape != (BATCH, NEW) or not bool(
@@ -868,7 +989,8 @@ def main() -> int:
     print(f"first-step logits gated vs ungated: max|d|={diff!r}, "
           f"max|ref|={ref_max!r} (tol {LOGIT_TOL}·max|ref|: bf16 rounds at "
           f"other places on the two routes); greedy tokens agree on {agree}"
-          f" of {BATCH} (need {MIN_TOKEN_AGREEMENT})")
+          f" of {BATCH} (need {MIN_TOKEN_AGREEMENT}); top-2 logit gap per "
+          f"lane: gated {top2_gaps(lg)}, ungated {top2_gaps(lu)}")
     if diff > LOGIT_TOL * ref_max or agree < MIN_TOKEN_AGREEMENT:
         raise RuntimeError("gated and ungated first-step logits disagree")
 
@@ -909,7 +1031,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa_mod.flash_attention.launches = 0      # the prefill path starts
-    int8_gemm.launches = 0
+    reset_counts(int8_gemm)
     with route_trace() as records:
         t0 = time.perf_counter()
         logits = prefill(core.params, long_prompt)
@@ -917,15 +1039,17 @@ def main() -> int:
         prefill_s = time.perf_counter() - t0
     flash_launches = fa_mod.flash_attention.launches   # ... and ends here
     prefill_i8 = int8_gemm.launches
+    prefill_by_design = dict(int8_gemm.launches_by_design)
     prefill_peak = torch.cuda.max_memory_allocated()
     prefill_routes = sorted({(r["label"], r["route"]) for r in records})
     print(f"prefill forward: {ARCH} full width ({L} layers), 1 x {PREFILL} "
           f"tokens in {prefill_s!r} s: {PREFILL / prefill_s!r} prefill "
           f"tokens/s; peak memory {prefill_peak / 2**30!r} GiB; "
           f"flash_attention launches {flash_launches} (expected {L}), "
-          f"int8_gemm launches {prefill_i8} (expected {calls_per_step}); "
-          f"routes {prefill_routes} [{card}]")
-    if flash_launches != L or prefill_i8 != calls_per_step:
+          f"int8_gemm launches {prefill_i8} (expected {calls_per_step}), "
+          f"by design {prefill_by_design}; routes {prefill_routes} [{card}]")
+    if flash_launches != L or prefill_i8 != calls_per_step or (
+            prefill_by_design["A"] != calls_per_step):
         raise RuntimeError(f"the prefill launched flash_attention "
                            f"{flash_launches} and int8_gemm {prefill_i8} "
                            f"times")
@@ -1002,7 +1126,9 @@ def main() -> int:
         "bound_by": ("bytes" if per_step["bytes_ms"] >= per_step["ops_ms"]
                      else "operations"),
         "library_ms": per_step["library_ms"],
-        "path": "decode step",
+        "device_ms": per_step["device_ms"],
+        "library_device_ms": per_step["library_device_ms"],
+        "path": "decode step", "design": per_step["design"],
         "work": f"the {calls_per_step} calls of one {ARCH} decode step at "
                 f"batch {BATCH} (per-shape times x calls per step); "
                 f"launches counted over the gated serve's "
@@ -1018,10 +1144,31 @@ def main() -> int:
         "bound_by": ("bytes" if per_fwd["bytes_ms"] >= per_fwd["ops_ms"]
                      else "operations"),
         "library_ms": per_fwd["library_ms"],
-        "path": "prefill forward",
+        "device_ms": per_fwd["device_ms"],
+        "library_device_ms": per_fwd["library_device_ms"],
+        "path": "prefill forward", "design": per_fwd["design"],
         "work": f"the {calls_per_step} calls of one {ARCH} prefill forward "
-                f"at M = {PREFILL} (per-shape times x calls per forward); "
+                f"at M = {PREFILL} (per-shape times x calls per "
+                f"forward); "
                 f"launches counted over one forward"}, {
+        "name": "int8_gemm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/int8_gemm.cu",
+        "replaces": "src/repro/kernels/int8_gemm.py:53",
+        "launches": ws_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows
+                           if r["dataflow"] == "ws" and r["design"] == "B"),
+        "ms": ws_step["ms"], "plain_ms": ws_step["plain_ms"],
+        "bound_ms": ws_step["bound_ms"],
+        "bound_by": ("bytes" if ws_step["bytes_ms"] >= ws_step["ops_ms"]
+                     else "operations"),
+        "library_ms": ws_step["library_ms"],
+        "device_ms": ws_step["device_ms"],
+        "library_device_ms": ws_step["library_device_ms"],
+        "path": "ops.int8_matmul(dataflow='ws')", "design": ws_step["design"],
+        "work": f"the {calls_per_step} calls of one {ARCH} decode step at "
+                f"batch {BATCH} through ops.int8_matmul(dataflow='ws') "
+                f"(per-shape times x calls per step); launches counted "
+                f"around those {calls_per_step} calls"}, {
         "name": "sweep_eval", "route": "cuda", "path": "default campaign",
         "source": "src/repro_torch/kernels/csrc/sweep_eval.cu",
         "replaces": "src/repro/kernels/sweep_eval.py:58",

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels, each beside its plain torch version.
 
 * `int8_gemm` — the W8A16 GEMM every CiM-gated projection runs
-  (replaces the TPU kernel `repro/kernels/int8_gemm.py:_kernel_os`).
+  (replaces the TPU kernel `repro/kernels/int8_gemm.py`: `_kernel_os` and
+  `_kernel_ws`), with `plan_gemm` choosing its design per call.
 * `sweep_eval` — the planner's sweep row evaluator behind
   backend="pallas" (replaces `repro/kernels/sweep_eval.py:_sweep_kernel`).
 * `flash_attention` — blocked causal attention of the prefill forward
@@ -22,11 +23,12 @@ from .decode_attention import (decode_attention, decode_attention_check,
                                decode_attention_ref)
 from .flash_attention import (flash_attention, flash_attention_check,
                               flash_attention_ref)
-from .int8_gemm import int8_gemm, int8_gemm_ref
+from .int8_gemm import GemmPlan, int8_gemm, int8_gemm_ref, plan_gemm
 from .sweep_eval import (SWEEP_OUT_FIELDS, kernel_status, sweep_eval,
                          sweep_eval_ref)
 
-__all__ = ["ops", "int8_gemm", "int8_gemm_ref", "flash_attention",
+__all__ = ["ops", "int8_gemm", "int8_gemm_ref", "plan_gemm",
+           "GemmPlan", "flash_attention",
            "flash_attention_ref", "flash_attention_check",
            "decode_attention", "decode_attention_ref",
            "decode_attention_check",

@@ -38,16 +38,14 @@ def _check_heads(q, k) -> None:
 
 def int8_matmul(x, w_q, w_scale, dataflow: str = "os", block_m: int = 0,
                 block_n: int = 0, block_k: int = 0):
-    """y = x @ dequant(w_q) in f32 (the INT8 GEMM kernel).  The block
+    """y = x @ dequant(w_q) in f32 (the INT8 GEMM kernels).  The block
     arguments are kept only for parity with the JAX wrapper's signature and
-    are unused: the Hopper kernel has fixed tiles and masks ragged tails.
-    Only the output-stationary dataflow ("os") is ported."""
-    if dataflow == "ws":
-        raise NotImplementedError("the weight-stationary dataflow ('ws') of "
-                                  "int8_gemm is not ported yet (ROADMAP.md)")
-    if dataflow != "os":
-        raise ValueError(f"unknown dataflow {dataflow!r}")
-    return int8_gemm(x, w_q, w_scale)
+    are unused: the Hopper kernels choose their own tiles and mask ragged
+    tails.  dataflow="os" is the output-stationary kernel the model runs
+    (design A or B by shape), "ws" the weight-stationary split-K kernel
+    (design B at every M); f32 x takes the FMA kernel on either
+    (`int8_gemm.plan_gemm`)."""
+    return int8_gemm(x, w_q, w_scale, dataflow=dataflow)
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,

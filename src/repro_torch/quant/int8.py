@@ -52,14 +52,16 @@ def planned_linear(x, w_q, w_scale, use_cim_path: bool):
     """y = x @ dequant(w) — routed per the planner decision.
 
     use_cim_path=True  -> the hand-written INT8 GEMM kernel (f32
-                          accumulation, output cast back to x.dtype)
+                          accumulation, output rounded to x.dtype in the
+                          kernel's epilogue)
     use_cim_path=False -> plain torch matmul against the int8 weight in
                           x.dtype with the scale in the epilogue
     (the paper: never deploy CiM for M=1 / low-reuse GEMMs)."""
     if use_cim_path:
         lead = x.shape[:-1]
-        y = int8_gemm(x.reshape(-1, x.shape[-1]), w_q, w_scale)
-        return y.reshape(*lead, w_q.shape[1]).to(x.dtype)
+        y = int8_gemm(x.reshape(-1, x.shape[-1]), w_q, w_scale,
+                      out_dtype=x.dtype)
+        return y.reshape(*lead, w_q.shape[1])
     return dequant_contract(x, w_q, w_scale)
 
 

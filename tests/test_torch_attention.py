@@ -196,9 +196,16 @@ def test_int8_matmul():
                           torch.from_numpy(s))
     assert got.dtype == torch.float32
     _close(got, want, 1e-5)
-    with pytest.raises(NotImplementedError, match="ws"):
+    want_ws = jax_ops.int8_matmul(jnp.asarray(x), jnp.asarray(w),
+                                  jnp.asarray(s), dataflow="ws", block_m=8,
+                                  block_n=64, block_k=64, interpret=True)
+    got_ws = ops.int8_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                             torch.from_numpy(s), dataflow="ws")
+    assert got_ws.dtype == torch.float32
+    _close(got_ws, want_ws, 1e-5)
+    with pytest.raises(ValueError, match="dataflow"):
         ops.int8_matmul(torch.from_numpy(x), torch.from_numpy(w),
-                        torch.from_numpy(s), dataflow="ws")
+                        torch.from_numpy(s), dataflow="is")
 
 
 # --- the folded kernel functions -----------------------------------------

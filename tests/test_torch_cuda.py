@@ -26,6 +26,7 @@ the CPU): 1e-5 of max|ref| in f32, 2**-6 in bf16, as
 tests/test_torch_model.py.
 """
 import csv
+import importlib
 import importlib.util
 import os
 
@@ -50,6 +51,7 @@ from repro_torch.quant import KernelPlanTable, quantize_model_params
 
 pytestmark = pytest.mark.cuda
 
+I8 = importlib.import_module("repro_torch.kernels.int8_gemm")
 TOL = 1e-4
 # qwen2-7b projections (K, N): Wq/Wo, Wk/Wv, mlp-gate/up, mlp-down, lm_head
 FULL_WIDTH = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584),
@@ -76,26 +78,42 @@ def _inputs(m, k, n, dtype, device, seed=0):
     return x.to(device), q.to(device), s.to(device)
 
 
-def _check(x, q, s):
-    got = int8_gemm(x, q, s)
+def _check(x, q, s, dataflow="os", design=None):
+    """Kernel vs plain version within TOL·max|ref|; `design` is the one
+    int8_gemm.launches_by_design must show for the call."""
+    before = dict(int8_gemm.launches_by_design)
+    got = int8_gemm(x, q, s, dataflow=dataflow)
     want = int8_gemm_ref(x, q, s)
     torch.cuda.synchronize()
+    ran = [d for d, n in int8_gemm.launches_by_design.items()
+           if n != before[d]]
+    assert len(ran) == 1 and (design is None or ran == [design]), ran
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert torch.isfinite(got).all()
     err = (got - want).abs().max().item()
     assert err <= TOL * want.abs().max().item(), err
+    return got
 
 
+@pytest.mark.parametrize("dataflow", ["os", "ws"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("mkn", RAGGED, ids=lambda t: "x".join(map(str, t)))
-def test_kernel_matches_plain_ragged(cuda, mkn, dtype):
-    _check(*_inputs(*mkn, dtype, cuda))
+def test_kernel_matches_plain_ragged(cuda, mkn, dtype, dataflow):
+    """Ragged shapes; bf16 x runs design B on both dataflows, f32 x the
+    FMA kernel."""
+    design = "fma" if dtype == torch.float32 else "B"
+    _check(*_inputs(*mkn, dtype, cuda), dataflow, design)
 
 
-@pytest.mark.parametrize("m", [8, 128])
+@pytest.mark.parametrize("dataflow", ["os", "ws"])
+@pytest.mark.parametrize("m", [8, 32, 64, 128, 129, 2048])
 @pytest.mark.parametrize("kn", FULL_WIDTH, ids=lambda t: "x".join(map(str, t)))
-def test_kernel_matches_plain_full_width(cuda, kn, m):
-    _check(*_inputs(m, *kn, torch.bfloat16, cuda, seed=m))
+def test_kernel_matches_plain_full_width(cuda, kn, m, dataflow):
+    """Each design at every qwen2-7b projection shape: "os" takes design A
+    above A_MIN_ROWS (32) rows and B at or below; "ws" takes B at every
+    M."""
+    design = "A" if dataflow == "os" and m > I8.A_MIN_ROWS else "B"
+    _check(*_inputs(m, *kn, torch.bfloat16, cuda, seed=m), dataflow, design)
 
 
 def test_kernel_strided_x(cuda):
@@ -110,13 +128,79 @@ def test_kernel_strided_x(cuda):
 @pytest.mark.parametrize("kn", FULL_WIDTH[:4],
                          ids=lambda t: "x".join(map(str, t)))
 def test_kernel_matches_plain_prefill_rows(cuda, kn, m):
-    """More than 128 rows: one grid row of 128 per block row, the last
-    one ragged (the prefill runs M = 2048)."""
-    _check(*_inputs(m, *kn, torch.bfloat16, cuda, seed=m))
+    """More than 128 rows: design A, the last 128-row tile ragged at
+    M = 129 and 2000 (the prefill runs M = 2048)."""
+    _check(*_inputs(m, *kn, torch.bfloat16, cuda, seed=m), design="A")
 
 
 def test_kernel_matches_plain_prefill_lm_head(cuda):
     _check(*_inputs(2048, *FULL_WIDTH[4], torch.bfloat16, cuda, seed=1))
+
+
+@pytest.mark.parametrize("dataflow", ["os", "ws"])
+@pytest.mark.parametrize("m", [8, 300])
+def test_unaligned_and_strided_inputs(cuda, m, dataflow):
+    """Row strides and base addresses TMA cannot take run design B: an x
+    view with an odd row stride, an x view 2 bytes off alignment, a
+    weight view 1 byte off and with an odd row stride; a strided but
+    aligned x keeps design A."""
+    x, q, s = _inputs(m, 512, 256, torch.bfloat16, cuda, seed=m)
+    odd = torch.zeros((m, 515), dtype=torch.bfloat16, device=cuda)
+    odd[:, 1:513] = x
+    _check(odd[:, 1:513], q, s, dataflow, "B")
+    wide = torch.zeros((m, 520), dtype=torch.bfloat16, device=cuda)
+    wide[:, 8:520] = x
+    _check(wide[:, 8:520], q, s, dataflow,
+           "A" if dataflow == "os" and m > I8.A_MIN_ROWS else "B")
+    qw = torch.zeros((512, 259), dtype=torch.int8, device=cuda)
+    qw[:, 1:257] = q
+    _check(x, qw[:, 1:257], s, dataflow, "B")
+
+
+@pytest.mark.parametrize("case", [(8, 3584, 3584, "os"), (2048, 3584, 512, "os"),
+                                  (130, 1000, 37, "os"), (8, 18944, 3584, "ws"),
+                                  (300, 3584, 3584, "ws")],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_bf16_out_is_the_f32_out_cast_and_repeatable(cuda, case):
+    """bf16 out_dtype equals the f32 output cast, bit for bit; two calls
+    give equal bits (split-K partials are added in a fixed order)."""
+    m, k, n, dataflow = case
+    x, q, s = _inputs(m, k, n, torch.bfloat16, cuda, seed=k + n)
+    y32 = int8_gemm(x, q, s, dataflow=dataflow)
+    y16 = int8_gemm(x, q, s, out_dtype=torch.bfloat16, dataflow=dataflow)
+    again = int8_gemm(x, q, s, dataflow=dataflow)
+    torch.cuda.synchronize()
+    assert y16.dtype == torch.bfloat16
+    assert torch.equal(y16, y32.to(torch.bfloat16))
+    assert torch.equal(y32.view(torch.int32), again.view(torch.int32))
+
+
+def test_per_design_counters(cuda):
+    """One count per GEMM (design B's reduce pass is no second count), and
+    one per design."""
+    x, q, s = _inputs(256, 512, 256, torch.bfloat16, cuda)
+    cases = [((x, q, s), {}, "A"), ((x[:8], q, s), {}, "B"),
+             ((x, q, s), {"dataflow": "ws"}, "B"),
+             ((x[:8].float(), q, s), {}, "fma"),
+             ((x[:8].float(), q, s), {"dataflow": "ws"}, "fma")]
+    for args, kw, design in cases:
+        before = (int8_gemm.launches, dict(int8_gemm.launches_by_design))
+        int8_gemm(*args, **kw)
+        after = int8_gemm.launches_by_design
+        assert int8_gemm.launches == before[0] + 1
+        assert {d: after[d] - before[1][d] for d in after} == {
+            d: int(d == design) for d in after}
+
+
+def test_workspace_cap_takes_fewer_splits(cuda):
+    """ws at M = 2048 on mlp-gate: two K-slices would need 310 MB of
+    partials, above the cap, so the plan takes one and the call runs."""
+    i8 = importlib.import_module("repro_torch.kernels.int8_gemm")
+    m, k, n = 2048, 3584, 18944
+    plan = i8.plan_gemm(m, n, k, dataflow="ws")
+    assert plan.splits == 1
+    assert 4 * 2 * m * n > i8.WORKSPACE_CAP
+    _check(*_inputs(m, k, n, torch.bfloat16, cuda, seed=3), "ws", "B")
 
 
 def test_launch_counter(cuda):
