@@ -33,12 +33,16 @@ design-space campaigns.  In order it:
 4. holds the flash-attention kernel against its plain version (every
    case in f32 and bf16; GQA 28/4 and 8/1; sq = sk and sq < sk; a window;
    d = 64 and 128), element by element within the bounds of ATTN_TOL_DOC,
-   and times it, the plain version and `scaled_dot_product_attention`
-   (the yardstick) at qwen2-7b's prefill shape;
+   each row naming the design that ran (`flash_attention.design`: "wgmma"
+   = TMA + wgmma for bf16, "fma" for f32), and times it, the plain
+   version and `scaled_dot_product_attention` (the yardstick) at
+   qwen2-7b's prefill shape, by CUDA events (`ms`) and by the profiler's
+   device time per call (`device_ms`, `library_device_ms`);
 5. does the same for the flash-decoding kernel (length 0, 7, 300 and S;
-   S = 300, not a multiple of 512), timed at qwen2-7b's decode_32k shape;
-   its main path is its public wrapper `ops.decode_attention`, called
-   once there with the launch count read around the call;
+   S = 300, not a multiple of 512; designs "mma" = TMA ring + mma.sync
+   for bf16, "fma" for f32), timed at qwen2-7b's decode_32k shape; its
+   main path is its public wrapper `ops.decode_attention`, called once
+   there with the launch count read around the call;
 6. holds the sweep kernel against its plain version bit for bit (NaN
    positions included) on the CUDA tensors and on a CPU copy of the first
    65,536 rows: every candidate row of the 1338-verdict golden grid in
@@ -65,12 +69,13 @@ design-space campaigns.  In order it:
    planned at batch 8 and length 2048, `make_prefill(cfg,
    RunConfig(attn_impl="pallas"), core.prefill_plan_table)` on one
    (1, 2048) prompt; checks that the prefill table gates all 8 labels,
-   that the forward launched flash_attention exactly 28 times and
-   int8_gemm exactly 197 times, all on design A, and that its logits
+   that the forward launched flash_attention exactly 28 times, all on
+   its "wgmma" design, and int8_gemm exactly 197 times, all on design A,
+   and that its logits
    agree with the same
    forward on `attn_impl="flash_jnp"` (plain torch attention); prints the
    wall time, prefill tokens/s, peak memory and a traced forward's device
-   time by kernel;
+   time by kernel, with the flash kernel's share of it;
 11. cross-checks the two serving paths: `forward` with attn_impl="pallas"
    and attn_chunk=8 on the serve's batch-8, 16-token prompt (the kernel
    at a 16-row block) under the serve's prefill table, against
@@ -174,12 +179,13 @@ def device_ms(torch, fn, n_inputs: int, calls: int = 24) -> float:
     """Mean device time of fn(i) per call: the summed durations of the
     device activity torch.profiler records over `calls` calls, cycling
     over n_inputs input copies.  Unlike time_ms it leaves out the time the
-    device waits for the host between small launches."""
+    device waits for the host between small launches.  NaN (not measured)
+    when five windows in a row lost records: a yardstick, not a check."""
     from torch.profiler import ProfilerActivity, profile
     for i in range(2):
         fn(i % n_inputs)
     torch.cuda.synchronize()
-    for _ in range(3):      # a window that lost its records is taken again
+    for _ in range(5):      # a window that lost its records is taken again
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(calls):
                 fn(i % n_inputs)
@@ -189,8 +195,9 @@ def device_ms(torch, fn, n_inputs: int, calls: int = 24) -> float:
                             str(e.device_type)).endswith("CUDA")]
         if len(spans) >= calls:          # every call launches >= 1 kernel
             return sum(spans) / 1e3 / calls
-    raise RuntimeError("the profiler recorded fewer device activities than "
-                       "calls in three windows")
+    print(f"device_ms: the profiler recorded fewer device activities than "
+          f"calls in five windows; not measured", file=sys.stderr)
+    return math.nan
 
 
 def bound_parts_ms(m: int, k: int, n: int, x_bytes: int,
@@ -268,11 +275,11 @@ def top2_gaps(logits) -> list[float]:
     return [round(v, 5) for v in (top[:, 0] - top[:, 1]).tolist()]
 
 
-def reset_counts(int8_gemm) -> None:
-    """Set int8_gemm's launch counts, in all and per design, to 0."""
-    int8_gemm.launches = 0
-    for key in int8_gemm.launches_by_design:
-        int8_gemm.launches_by_design[key] = 0
+def reset_counts(wrapper) -> None:
+    """Set a kernel wrapper's launch counts, in all and per design, to 0."""
+    wrapper.launches = 0
+    for key in wrapper.launches_by_design:
+        wrapper.launches_by_design[key] = 0
 
 
 def profile_window(torch, fn) -> dict:
@@ -332,6 +339,13 @@ def attn_inputs(torch, shapes, dtype, seed: int):
             for s in shapes]
 
 
+def changed(wrapper, before: dict) -> str:
+    """The designs whose launch count moved since `before` (a copy of
+    wrapper.launches_by_design)."""
+    return "+".join(d for d, c in wrapper.launches_by_design.items()
+                    if c != before[d])
+
+
 def check_flash(torch, ops, fa_mod) -> list[dict]:
     """ops.flash_attention vs the plain version on every FLASH_CASES, in
     both dtypes, element by element (ATTN_TOL_DOC)."""
@@ -341,10 +355,12 @@ def check_flash(torch, ops, fa_mod) -> list[dict]:
         q, k, v = attn_inputs(torch, [(b, sq, h, d), (b, sk, kv, d),
                                       (b, sk, kv, d)], getattr(torch, dt),
                               seed=sq + sk + h + d + window)
+        before = dict(fa_mod.flash_attention.launches_by_design)
         got = ops.fold(ops.flash_attention(q, k, v, window=window))
         r = fa_mod.flash_attention_check(got, ops.fold(q), ops.fold(k),
                                          ops.fold(v), True, window)
-        rows.append({"case": (b, sq, sk, h, kv, d, window, dt), **r})
+        rows.append({"case": (b, sq, sk, h, kv, d, window, dt),
+                     "design": changed(fa_mod.flash_attention, before), **r})
         del q, k, v, got
         torch.cuda.empty_cache()
     return rows
@@ -360,10 +376,13 @@ def check_decode(torch, ops, da_mod) -> list[dict]:
                                         (b, S, kv, d)], getattr(torch, dt),
                                 seed=S + h + d)
         for length in sorted({0, 7, min(300, S), S}):
+            before = dict(da_mod.decode_attention.launches_by_design)
             got = ops.fold(ops.decode_attention(q, kc, vc, length))
             r = da_mod.decode_attention_check(got, ops.fold(q), ops.fold(kc),
                                               ops.fold(vc), length)
-            rows.append({"case": (b, S, h, kv, d, dt, length), **r})
+            rows.append({"case": (b, S, h, kv, d, dt, length),
+                         "design": changed(da_mod.decode_attention, before),
+                         **r})
         del q, kc, vc
         torch.cuda.empty_cache()
     return rows
@@ -494,7 +513,8 @@ def main() -> int:
         print(f"{name}: built for sm_90a in {kb.seconds:.2f} s by nvcc, "
               f"{kb.path.name}")
         for line in kb.log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+            if "registers" in line or "spill" in line or (
+                    "Compiling" in line or "Performance" in line):
                 print(f"  ptxas: {line.strip()}")
 
     # --- 3. kernel vs plain version ----------------------------------------
@@ -604,17 +624,24 @@ def main() -> int:
     frows = check_flash(torch, ops, fa_mod)
     for r in frows:
         print(f"flash_attention (b, sq, sk, H, KV, d, window, dtype) = "
-              f"{r['case']}: max|d|={r['max_abs_err']!r}, max |d|/bound="
-              f"{r['worst']!r} {'ok' if r['ok'] else 'FAIL'}")
+              f"{r['case']}, design {r['design']}: max|d|="
+              f"{r['max_abs_err']!r}, max |d|/bound={r['worst']!r} "
+              f"{'ok' if r['ok'] else 'FAIL'}")
     if not all(r["ok"] for r in frows):
         raise RuntimeError(f"flash_attention disagrees with its plain "
                            f"version ({ATTN_TOL_DOC}): "
                            f"{[r for r in frows if not r['ok']]}")
+    flash_design = {"bfloat16": "wgmma", "float32": "fma"}
+    if any(r["design"] != flash_design[r["case"][-1]] for r in frows):
+        raise RuntimeError(f"flash_attention ran an unexpected design: "
+                           f"{[(r['case'], r['design']) for r in frows]}")
     H, KV = cfg.n_heads, cfg.n_kv_heads
     q, k, v = attn_inputs(torch, [(1, PREFILL, H, dh), (1, PREFILL, KV, dh),
                                   (1, PREFILL, KV, dh)], torch.bfloat16, 7)
     qf, kf, vf = ops.fold(q), ops.fold(k), ops.fold(v)
     flash_ms = time_ms(torch, lambda i: fa_mod.flash_attention(qf, kf, vf), 1)
+    flash_dev_ms = device_ms(
+        torch, lambda i: fa_mod.flash_attention(qf, kf, vf), 1)
     flash_plain_ms = time_ms(
         torch, lambda i: fa_mod.flash_attention_ref(qf, kf, vf), 1)
     q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))
@@ -624,6 +651,9 @@ def main() -> int:
                 - ops.flash_attention(q, k, v).float()).abs().max().item()
     flash_lib_ms = time_ms(torch, lambda i: F.scaled_dot_product_attention(
         q4, k4, v4, is_causal=True, enable_gqa=True), 1)
+    flash_lib_dev_ms = device_ms(
+        torch, lambda i: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True), 1)
     pairs = int(fa_mod._mask(PREFILL, PREFILL, True, 0, "cpu").sum())
     flash_ops_ms = 1e3 * 4 * dh * pairs * H / BF16_OPS_PER_S
     flash_bytes_ms = 1e3 * 2 * (qf.numel() * 2 + kf.numel() * 2) \
@@ -637,7 +667,11 @@ def main() -> int:
           f"{4 * dh * pairs * H / 1e9:.2f} GFLOP over {pairs} unmasked "
           f"pairs per head at 989 TFLOP/s = {flash_ops_ms!r} ms, bytes: "
           f"{flash_bytes_ms!r} ms), {flash_bound_ms / flash_ms:.1%} of "
-          f"bound; per {L}-layer forward {L * flash_ms!r} ms [{card}]")
+          f"bound; per {L}-layer forward {L * flash_ms!r} ms (CUDA-event "
+          f"times); profiler device times: kernel {flash_dev_ms!r} ms "
+          f"({flash_bound_ms / flash_dev_ms:.1%} of bound), library "
+          f"{flash_lib_dev_ms!r} ms; design "
+          f"{fa_mod.design(qf.dtype)} [{card}]")
     del q, k, v, qf, kf, vf, q4, k4, v4, sdpa
     torch.cuda.empty_cache()
 
@@ -645,26 +679,35 @@ def main() -> int:
     drows = check_decode(torch, ops, da_mod)
     for r in drows:
         print(f"decode_attention (b, S, H, KV, d, dtype, length) = "
-              f"{r['case']}: max|d|={r['max_abs_err']!r}, max |d|/bound="
-              f"{r['worst']!r} {'ok' if r['ok'] else 'FAIL'}")
+              f"{r['case']}, design {r['design']}: max|d|="
+              f"{r['max_abs_err']!r}, max |d|/bound={r['worst']!r} "
+              f"{'ok' if r['ok'] else 'FAIL'}")
     if not all(r["ok"] for r in drows):
         raise RuntimeError(f"decode_attention disagrees with its plain "
                            f"version ({ATTN_TOL_DOC}): "
                            f"{[r for r in drows if not r['ok']]}")
+    decode_design = {"bfloat16": "mma", "float32": "fma"}
+    if any(r["design"] != decode_design[r["case"][5]] for r in drows):
+        raise RuntimeError(f"decode_attention ran an unexpected design: "
+                           f"{[(r['case'], r['design']) for r in drows]}")
     q, kc, vc = attn_inputs(torch, [(BATCH, 1, H, dh),
                                     (BATCH, DECODE_S, KV, dh),
                                     (BATCH, DECODE_S, KV, dh)],
                             torch.bfloat16, 8)
     length = torch.tensor(DECODE_S, dtype=torch.int32, device="cuda")
-    da_mod.decode_attention.launches = 0     # its main path: the public
+    reset_counts(da_mod.decode_attention)    # its main path: the public
     out = ops.decode_attention(q, kc, vc, length)  # wrapper, one call
     torch.cuda.synchronize()
     decode_launches = da_mod.decode_attention.launches
-    if decode_launches != 1 or not bool(torch.isfinite(out).all()):
+    decode_by_design = dict(da_mod.decode_attention.launches_by_design)
+    if decode_launches != 1 or decode_by_design["mma"] != 1 or not bool(
+            torch.isfinite(out).all()):
         raise RuntimeError(f"ops.decode_attention launched "
-                           f"{decode_launches} times")
+                           f"{decode_by_design}")
     qf, kf, vf = ops.fold(q), ops.fold(kc), ops.fold(vc)
     decode_ms = time_ms(
+        torch, lambda i: da_mod.decode_attention(qf, kf, vf, length), 1)
+    decode_dev_ms = device_ms(
         torch, lambda i: da_mod.decode_attention(qf, kf, vf, length), 1)
     decode_plain_ms = time_ms(
         torch, lambda i: da_mod.decode_attention_ref(qf, kf, vf, length), 1)
@@ -674,6 +717,9 @@ def main() -> int:
         - out.float()).abs().max().item()
     decode_lib_ms = time_ms(torch, lambda i: F.scaled_dot_product_attention(
         q4, k4, v4, enable_gqa=True), 1)
+    decode_lib_dev_ms = device_ms(
+        torch, lambda i: F.scaled_dot_product_attention(
+            q4, k4, v4, enable_gqa=True), 1)
     decode_bytes = 2 * (kf.numel() * 2 + qf.numel() * 2)
     decode_bytes_ms = 1e3 * decode_bytes / HBM_BYTES_PER_S
     decode_ops_ms = 1e3 * 4 * dh * DECODE_S * H * BATCH / BF16_OPS_PER_S
@@ -685,8 +731,11 @@ def main() -> int:
           f"{sdpa_err!r}); bound {decode_bound_ms!r} ms = max(bytes: "
           f"{decode_bytes / 1e6:.1f} MB at 3.35 TB/s = {decode_bytes_ms!r} "
           f"ms, operations: {decode_ops_ms!r} ms), "
-          f"{decode_bound_ms / decode_ms:.1%} of bound; main-path launches "
-          f"{decode_launches} [{card}]")
+          f"{decode_bound_ms / decode_ms:.1%} of bound (CUDA-event times); "
+          f"profiler device times: kernel {decode_dev_ms!r} ms "
+          f"({decode_bound_ms / decode_dev_ms:.1%} of bound), library "
+          f"{decode_lib_dev_ms!r} ms; main-path launches {decode_launches} "
+          f"by design {decode_by_design} [{card}]")
     del q, kc, vc, qf, kf, vf, q4, k4, v4, out
     torch.cuda.empty_cache()
 
@@ -1030,7 +1079,7 @@ def main() -> int:
     prefill(core.params, long_prompt)                    # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa_mod.flash_attention.launches = 0      # the prefill path starts
+    reset_counts(fa_mod.flash_attention)     # the prefill path starts
     reset_counts(int8_gemm)
     with route_trace() as records:
         t0 = time.perf_counter()
@@ -1038,6 +1087,7 @@ def main() -> int:
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
     flash_launches = fa_mod.flash_attention.launches   # ... and ends here
+    flash_by_design = dict(fa_mod.flash_attention.launches_by_design)
     prefill_i8 = int8_gemm.launches
     prefill_by_design = dict(int8_gemm.launches_by_design)
     prefill_peak = torch.cuda.max_memory_allocated()
@@ -1045,10 +1095,12 @@ def main() -> int:
     print(f"prefill forward: {ARCH} full width ({L} layers), 1 x {PREFILL} "
           f"tokens in {prefill_s!r} s: {PREFILL / prefill_s!r} prefill "
           f"tokens/s; peak memory {prefill_peak / 2**30!r} GiB; "
-          f"flash_attention launches {flash_launches} (expected {L}), "
+          f"flash_attention launches {flash_launches} (expected {L}), by "
+          f"design {flash_by_design}, "
           f"int8_gemm launches {prefill_i8} (expected {calls_per_step}), "
           f"by design {prefill_by_design}; routes {prefill_routes} [{card}]")
-    if flash_launches != L or prefill_i8 != calls_per_step or (
+    if flash_launches != L or flash_by_design["wgmma"] != L or (
+            prefill_i8 != calls_per_step) or (
             prefill_by_design["A"] != calls_per_step):
         raise RuntimeError(f"the prefill launched flash_attention "
                            f"{flash_launches} and int8_gemm {prefill_i8} "
@@ -1077,6 +1129,11 @@ def main() -> int:
         for name, us in prof["kernels"][:10]:
             print(f"  device {us / 1e3!r} ms ({us / 1e3 / prof['busy_ms']:.1%}"
                   f"): {name[:90]}")
+        flash_us = sum(us for name, us in prof["kernels"]
+                       if "flash_wgmma_kernel" in name)
+        print(f"  flash_attention's share of the traced forward: "
+              f"{flash_us / 1e3!r} ms of {prof['busy_ms']!r} ms busy "
+              f"({flash_us / 1e3 / prof['busy_ms']:.1%})")
     else:
         print("traced prefill forward: the profiler recorded no device time "
               "(device busy share not measured)")
@@ -1192,6 +1249,8 @@ def main() -> int:
         "bound_by": ("bytes" if flash_bytes_ms >= flash_ops_ms
                      else "operations"),
         "library_ms": flash_lib_ms,
+        "device_ms": flash_dev_ms, "library_device_ms": flash_lib_dev_ms,
+        "design": "+".join(d for d, c in flash_by_design.items() if c),
         "work": f"one call at (1, {PREFILL}, {cfg.n_heads}/{cfg.n_kv_heads}, "
                 f"{dh}) bf16 causal: one layer of the {ARCH} prefill "
                 f"({L} per forward); launches counted over one forward"}, {
@@ -1206,10 +1265,16 @@ def main() -> int:
         "bound_by": ("bytes" if decode_bytes_ms >= decode_ops_ms
                      else "operations"),
         "library_ms": decode_lib_ms,
+        "device_ms": decode_dev_ms, "library_device_ms": decode_lib_dev_ms,
+        "design": "+".join(d for d, c in decode_by_design.items() if c),
         "work": f"one call at ({BATCH}, {DECODE_S}, {cfg.n_heads}/"
                 f"{cfg.n_kv_heads}, {dh}) bf16, length {DECODE_S} ({ARCH} "
                 f"decode_32k); its main path is one call of the public "
                 f"wrapper ops.decode_attention (no model calls it)"}]
+    for entry in kernels:               # JSON has no NaN: not measured
+        for key in ("device_ms", "library_device_ms"):
+            if key in entry and not math.isfinite(entry[key]):
+                entry[key] = None
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

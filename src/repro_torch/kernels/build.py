@@ -5,8 +5,10 @@ plain C interface.  `build_library` compiles it for sm_90a at first use
 into `build/repro_torch/` at the repository root (gitignored), in a
 shared library named by a hash of the source and the nvcc flags, and
 loads it; a later call with the same source and flags reuses the file.
-Each kernel passes its own extra flags (the sweep kernel turns
-multiply-add contraction off).
+The hash covers every header under `csrc/` that the source includes
+(`#include "..."`, followed recursively), so an edited header rebuilds
+each library that uses it.  Each kernel passes its own extra flags (the
+sweep kernel turns multiply-add contraction off).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -45,6 +48,35 @@ def nvcc() -> str:
                        "CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def included_files(source: Path) -> list[Path]:
+    """`source` and every file it includes with `#include "..."`,
+    recursively, resolved beside the including file; each once, the
+    source first, then in the order they are first reached."""
+    seen, order, todo = set(), [], [source.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        order.append(path)
+        for name in _INCLUDE.findall(path.read_text()):
+            todo.append((path.parent / name).resolve())
+    return order
+
+
+def source_tag(source: Path, flags: tuple[str, ...]) -> str:
+    """The library's name tag: a hash of the source, the files it
+    includes (each with its name) and the nvcc flags."""
+    h = hashlib.sha256()
+    for path in included_files(source):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 def build_library(name: str, extra_flags: tuple[str, ...] = ()
                   ) -> KernelBuild:
     """Compile `csrc/<name>.cu` (once per source and flag hash) and load
@@ -52,8 +84,7 @@ def build_library(name: str, extra_flags: tuple[str, ...] = ()
     private temporary file and renames it into place."""
     source = CSRC / f"{name}.cu"
     flags = NVCC_FLAGS + tuple(extra_flags)
-    tag = hashlib.sha256(source.read_bytes()
-                         + " ".join(flags).encode()).hexdigest()[:16]
+    tag = source_tag(source, flags)
     path = BUILD_DIR / f"{name}_{tag}.so"
     seconds, log = 0.0, ""
     if not path.exists():

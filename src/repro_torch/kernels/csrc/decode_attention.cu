@@ -1,41 +1,63 @@
 // Flash-decoding for Hopper (sm_90a): one query token per head against a KV
 // cache whose first `length` positions are valid.
 //
-// Replaces the TPU kernel src/repro/kernels/decode_attention.py:_kernel.  It
-// keeps that kernel's folded contract -- q (bh, 1, d), caches (bh_kv, S, d)
-// with bh = rep * bh_kv, query row i reading cache row i / rep -- and its
-// arithmetic: scores scaled by 1/sqrt(d), positions >= length masked with
-// NEG = -1e30 (never -inf: with length = 0 every score is NEG and the result
-// is the mean of v over all S positions, as the JAX package's reference
-// gives), online softmax with f32 sums, output in q's dtype.  `length` is
-// read from device memory, so a launch never waits on the host.
+// Replaces the TPU kernel src/repro/kernels/decode_attention.py:_kernel
+// (:20).  It keeps that kernel's folded contract -- q (bh, 1, d), caches
+// (bh_kv, S, d) with bh = rep * bh_kv, query row i reading cache row
+// i / rep -- and its arithmetic: scores scaled by 1/sqrt(d), positions >=
+// length masked with NEG = -1e30 (never -inf: with length = 0 every score
+// is NEG and the result is the mean of v over all S positions, as the JAX
+// package's reference gives), online softmax with f32 sums, output in q's
+// dtype.  `length` is read from device memory, so a launch never waits on
+// the host.
 //
 // Bound on an H100 SXM: at qwen2-7b's decode_32k shape (batch 8, S = 32768,
 // 28 query and 4 kv heads, d = 128, bf16) the caches are 537 MB and the
 // work is 4 * d operations per (head, position): ~0.02 operations per
 // byte, so HBM at 3.35 TB/s bounds it at ~160 us -- if every cache byte is
-// read once.  The design is about that:
+// read once, and enough bytes are in flight to cover HBM's latency.  The
+// bf16 design is about that:
 //  * one block serves the `hb` query heads that share one kv head (all 7
-//    at qwen2-7b), so each cache byte is read once, not once per query
-//    head as the TPU kernel's repeated cache is;
-//  * S is split across blocks (the wrapper sizes the split so that about
-//    four blocks per SM are in flight: one block per kv head would leave
-//    most of the 132 SMs idle at 32 kv heads), and a second small kernel
-//    combines the splits' (m, l, acc) partials;
+//    at qwen2-7b; at most 16), so each cache byte is read once, not once
+//    per query head as the TPU kernel's repeated cache is;
+//  * S is split across blocks (the wrapper's `split_plan` sizes the split
+//    so that one wave fills every SM with one block), and a second small
+//    kernel, one block per head, combines the splits' (m, l, acc) partials
+//    in split order: no atomics, so two calls give equal bits;
+//  * a producer warp's one thread streams the split's 64-position tiles of
+//    K and V through a 4-stage ring by TMA (3-D maps (d, S, heads),
+//    64-column boxes, 128-byte swizzle: 32 KB a stage at d = 128, so up to
+//    128 KB in flight on an SM; 2 or 3 stages at two blocks an SM measured
+//    no faster).  Positions past S read as zeros, never another head's
+//    rows;
+//  * four consumer warps each take 16 positions of every tile.  Both
+//    products run on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+//    sums): the hb query heads are the 16 rows of the A operand (rows past
+//    hb are zero); K fragments come from the swizzled tile by ldmatrix and
+//    V fragments by ldmatrix.trans, conflict-free.  Each warp keeps its
+//    rows' (m, l, acc) in registers, in log2 units (one multiply by
+//    scale * log2(e), then the masks, then ex2);
+//  * p enters the PV product as a hi/lo pair of bf16 values (two MMAs),
+//    which keeps ~16 bits of it: the kernel holds p in f32 as far as the
+//    check can see, and is bound by bytes, so the extra MMAs cost nothing;
+//  * the warps' partials merge in shared memory at the end in warp order;
 //  * a split stops at `length` when length >= 1: the positions after it
 //    contribute exp(-1e30 - m) = 0 exactly, so skipping them is the same
-//    function.  With length <= 0 every position is visited;
-//  * in a 64-position tile each thread scores one position for half the
-//    block's heads, reading its K row straight from global memory (each K
-//    byte is used by every head in registers); V is staged in shared memory
-//    as f32, and each thread accumulates one output column for its heads.
-// The kernel computes in f32 (FMA) for bf16 and f32 inputs alike.
+//    function.  With length <= 0 every position is visited.
+// f32 inputs keep the FMA kernel (computing in f32), off every path.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
+
+// --- shared constants and the f32 FMA kernel ---------------------------------
 
 constexpr float NEG = -1e30f;
 constexpr int DT = 128;       // threads per block
@@ -44,9 +66,6 @@ constexpr int HB_MAX = 16;    // query heads per block
 constexpr int SH = DT / TK;   // threads per position in the score phase
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void from_f(float x, float* out) { *out = x; }
 __device__ __forceinline__ void from_f(float x, __nv_bfloat16* out) {
   *out = __float2bfloat16(x);
@@ -195,68 +214,372 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
 }
 
-// Grid (bh / hb), D threads: merges the n_splits partials of each head.
-template <typename T, int D>
+// --- bf16: TMA ring + mma.sync -----------------------------------------------
+
+namespace dk {
+
+constexpr int T = 64;                    // cache positions per tile
+constexpr int STAGES = 4;                // tiles in flight per block
+constexpr int WARPS = 4;                 // consumer warps, 16 positions each
+constexpr int THREADS = (WARPS + 1) * 32;  // + a producer warp
+constexpr int ROW = 128;                 // bytes of a 64-column chunk row
+
+// Shared memory of a block for head widths padded to DP (64 or 128)
+// columns: a stage is the K tile then the V tile, each DP / 64 chunks of
+// T rows x 128 bytes.  After the loop the ring holds the warps' partials.
+template <int DP>
+struct Layout {
+  static constexpr int NCH = DP / 64;
+  static constexpr int TILE_BYTES = NCH * T * ROW;
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
+  static constexpr int BAR_OFF = STAGES * STAGE_BYTES;  // full, then empty
+  static constexpr int BYTES = BAR_OFF + 2 * STAGES * 8;
+  static constexpr int ALLOC = BYTES + 1024;            // for alignment
+};
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
+                                              uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// (a, b) as a bf16 pair `hi` and the bf16 pair `lo` of what hi leaves
+// over: hi + lo holds ~16 bits of each value.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t* hi,
+                                           uint32_t* lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - __low2float(h),
+                                                 b - __high2float(h));
+  *hi = *reinterpret_cast<const uint32_t*>(&h);
+  *lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// Byte address of the 16-byte piece `piece` (8 columns) of row `row` in a
+// tile of T rows: 64-column chunks of T x 128 bytes, 128-byte swizzle.
+__device__ __forceinline__ uint32_t tile_at(uint32_t tile, int row,
+                                            int piece) {
+  return tile + (piece / 8) * T * ROW + row * ROW
+         + (((piece % 8) ^ (row & 7)) << 4);
+}
+
+// Grid (n_splits, bh / hb), THREADS threads.  Writes, for each of its hb
+// heads, the partial (acc[0..D), m, l) of positions [split * split_len,
+// ...) to part[(blockIdx.y * n_splits + split) * hb + head], m in log2
+// units.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+decode_mma_kernel(const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap,
+                  const __nv_bfloat16* __restrict__ q,
+                  const int* __restrict__ length, float* __restrict__ part,
+                  int S, int hb, int rep, int split_len, float scale) {
+  constexpr int DP = D < 64 ? 64 : D;
+  constexpr int KS = D / 16;             // k-steps of QK^T
+  constexpr int NT = D / 8;              // 8-column tiles of the output
+  using L = Layout<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;          // swizzle atoms
+  uint8_t* const sbase = smem_raw + (base - raw);
+  const uint32_t full0 = base + L::BAR_OFF, empty0 = full0 + 8 * STAGES;
+
+  const int split = blockIdx.x, blk = blockIdx.y;
+  const int len = *length;
+  const int valid = len > 0 ? min(len, S) : S;
+  const int k_lo = split * split_len;
+  const int k_hi = min(valid, k_lo + split_len);
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + T - 1) / T : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, WARPS);      // one arrive per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= WARPS * 32) {
+    // producer warp: one thread keeps the ring full
+    if (threadIdx.x == WARPS * 32) {
+      const int kvh = blk * hb / rep;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES;
+        const uint32_t kt = base + s * L::STAGE_BYTES;
+        const uint32_t vt = kt + L::TILE_BYTES;
+        if (it >= STAGES) mbar_wait(empty0 + 8 * s, ((it / STAGES) - 1) & 1);
+        mbar_expect_tx(full0 + 8 * s, L::STAGE_BYTES);
+        for (int c = 0; c < L::NCH; ++c) {
+          tma_load_3d(kt + c * T * ROW, &kmap, full0 + 8 * s, 64 * c,
+                      k_lo + it * T, kvh);
+          tma_load_3d(vt + c * T * ROW, &vmap, full0 + 8 * s, 64 * c,
+                      k_lo + it * T, kvh);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warp w scores positions 16 w .. 16 w + 15 of each tile
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const float sl2 = scale * 1.4426950408889634f;   // scores in log2 units
+  const __nv_bfloat16* qb = q + (long long)blk * hb * D;
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const int c = ks * 16 + 2 * tq;
+    const uint32_t* r0 = reinterpret_cast<const uint32_t*>(qb + g * D + c);
+    const uint32_t* r1 = reinterpret_cast<const uint32_t*>(qb + (g + 8) * D
+                                                           + c);
+    qa[ks][0] = g < hb ? r0[0] : 0u;
+    qa[ks][1] = g + 8 < hb ? r1[0] : 0u;
+    qa[ks][2] = g < hb ? r0[4] : 0u;
+    qa[ks][3] = g + 8 < hb ? r1[4] : 0u;
+  }
+  float acc[NT][4];
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+  float m0 = NEG, m1 = NEG, l0 = 0.0f, l1 = 0.0f;
+  // ldmatrix rows: lane l addresses row l % 8 of matrix l / 8
+  const int mi = lane / 8, mr = lane % 8;
+  const int krow = warp * 16 + (mi / 2) * 8 + mr, kpiece = mi % 2;
+  const int vrow = warp * 16 + (mi % 2) * 8 + mr, vpiece = mi / 2;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES;
+    const uint32_t kt = base + s * L::STAGE_BYTES;
+    const uint32_t vt = kt + L::TILE_BYTES;
+    const int p0 = k_lo + it * T + warp * 16;      // this warp's positions
+    mbar_wait(full0 + 8 * s, (it / STAGES) & 1);
+
+    float sc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t b[4];
+      ldsm_x4(tile_at(kt, krow, 2 * ks + kpiece), b);
+      mma_bf16(sc[0], qa[ks], b[0], b[1]);
+      mma_bf16(sc[1], qa[ks], b[2], b[3]);
+    }
+    // element (nt, 2 h + e): head row g + 8 h, position p0 + 8 nt + 2 tq + e
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = p0 + nt * 8 + 2 * tq + (i & 1);
+        float x = sc[nt][i] * sl2;
+        if (key >= k_hi) x = -INFINITY;  // outside this split: no weight
+        else if (key >= len) x = NEG;    // masked (only when length <= 0)
+        sc[nt][i] = x;
+      }
+      mx0 = fmaxf(mx0, fmaxf(sc[nt][0], sc[nt][1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[nt][2], sc[nt][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float c0 = ex2(m0 - mx0), c1 = ex2(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    // p as hi and lo A fragments (the C layout of the two 8-position
+    // tiles is the A layout of one 16-position step)
+    uint32_t ph[4], pl[4];
+    float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const float e0 = ex2(sc[nt][0] - m0), e1 = ex2(sc[nt][1] - m0);
+      const float e2 = ex2(sc[nt][2] - m1), e3 = ex2(sc[nt][3] - m1);
+      ps0 += e0 + e1;
+      ps1 += e2 + e3;
+      split_bf16(e0, e1, &ph[2 * nt], &pl[2 * nt]);
+      split_bf16(e2, e3, &ph[2 * nt + 1], &pl[2 * nt + 1]);
+    }
+    l0 = l0 * c0 + ps0;
+    l1 = l1 * c1 + ps1;
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      acc[i][0] *= c0;
+      acc[i][1] *= c0;
+      acc[i][2] *= c1;
+      acc[i][3] *= c1;
+    }
+#pragma unroll
+    for (int pi = 0; pi < NT / 2; ++pi) {
+      uint32_t b[4];
+      ldsm_x4_trans(tile_at(vt, vrow, 2 * pi + vpiece), b);
+      mma_bf16(acc[2 * pi], ph, b[0], b[1]);
+      mma_bf16(acc[2 * pi], pl, b[0], b[1]);
+      mma_bf16(acc[2 * pi + 1], ph, b[2], b[3]);
+      mma_bf16(acc[2 * pi + 1], pl, b[2], b[3]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+  }
+
+  // merge the warps' partials in warp order, in the (now idle) ring
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  float* ow = reinterpret_cast<float*>(sbase);     // [WARPS][16][D]
+  float* mw = ow + WARPS * 16 * D;                   // [WARPS][16]
+  float* lw = mw + WARPS * 16;                       // [WARPS][16]
+  asm volatile("bar.sync 1, %0;\n" :: "n"(WARPS * 32) : "memory");
+  if (tq == 0) {
+    mw[warp * 16 + g] = m0;
+    mw[warp * 16 + g + 8] = m1;
+    lw[warp * 16 + g] = l0;
+    lw[warp * 16 + g + 8] = l1;
+  }
+  asm volatile("bar.sync 1, %0;\n" :: "n"(WARPS * 32) : "memory");
+  float M0 = NEG, M1 = NEG;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    M0 = fmaxf(M0, mw[w * 16 + g]);
+    M1 = fmaxf(M1, mw[w * 16 + g + 8]);
+  }
+  const float w0 = ex2(m0 - M0), w1 = ex2(m1 - M1);
+  float* mine = ow + warp * 16 * D;
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    const int c = i * 8 + 2 * tq;
+    mine[g * D + c] = acc[i][0] * w0;
+    mine[g * D + c + 1] = acc[i][1] * w0;
+    mine[(g + 8) * D + c] = acc[i][2] * w1;
+    mine[(g + 8) * D + c + 1] = acc[i][3] * w1;
+  }
+  asm volatile("bar.sync 1, %0;\n" :: "n"(WARPS * 32) : "memory");
+  float* pb = part + ((long long)blk * gridDim.x + split) * hb * (D + 2);
+  for (int i = threadIdx.x; i < hb * D; i += WARPS * 32) {
+    const int r = i / D, c = i % D;
+    float a = 0.0f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) a += ow[(w * 16 + r) * D + c];
+    pb[r * (D + 2) + c] = a;
+  }
+  if ((int)threadIdx.x < hb) {
+    const int r = threadIdx.x;
+    float M = NEG, l = 0.0f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, mw[w * 16 + r]);
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w)
+      l += lw[w * 16 + r] * ex2(mw[w * 16 + r] - M);
+    pb[r * (D + 2) + D] = M;
+    pb[r * (D + 2) + D + 1] = l;
+  }
+}
+
+}  // namespace dk
+
+// Grid (bh / hb, hb), D threads: block (b, r) merges the n_splits partials
+// of head r of query block b in split order; m is in log2 units when LOG2
+// (the bf16 kernel's partials).
+template <typename T, int D, bool LOG2>
 __global__ void __launch_bounds__(D)
 decode_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
                       int hb, int n_splits) {
-  const int blk = blockIdx.x, c = threadIdx.x;
+  const int blk = blockIdx.x, r = blockIdx.y, c = threadIdx.x;
   const float* pb = part + (long long)blk * n_splits * hb * (D + 2);
-  for (int r = 0; r < hb; ++r) {
-    float M = NEG;
-    for (int i = 0; i < n_splits; ++i)
-      M = fmaxf(M, pb[(i * hb + r) * (D + 2) + D]);
-    float L = 0.0f, A = 0.0f;
-    for (int i = 0; i < n_splits; ++i) {
-      const float* e = pb + (i * hb + r) * (D + 2);
-      const float w = expf(e[D] - M);
-      L += e[D + 1] * w;
-      A += e[c] * w;
-    }
-    from_f(A / fmaxf(L, 1e-30f), out + ((long long)blk * hb + r) * D + c);
+  float M = NEG;
+  for (int i = 0; i < n_splits; ++i)
+    M = fmaxf(M, pb[(i * hb + r) * (D + 2) + D]);
+  float L = 0.0f, A = 0.0f;
+  for (int i = 0; i < n_splits; ++i) {
+    const float* e = pb + (i * hb + r) * (D + 2);
+    const float w = LOG2 ? exp2f(e[D] - M) : expf(e[D] - M);
+    L += e[D + 1] * w;
+    A += e[c] * w;
   }
+  from_f(A / fmaxf(L, 1e-30f), out + ((long long)blk * hb + r) * D + c);
 }
 
-template <typename T, int D>
-void launch(const void* q, const void* kc, const void* vc, const void* length,
-            void* part, void* out, int bh, int S, int hb, int rep,
-            int n_splits, int split_len, float scale, cudaStream_t s) {
+template <int D>
+int launch_f32(const void* q, const void* kc, const void* vc,
+               const void* length, void* part, void* out, int bh, int S,
+               int hb, int rep, int n_splits, int split_len, float scale,
+               cudaStream_t s) {
   const dim3 grid(n_splits, bh / hb);
-  decode_split_kernel<T, D><<<grid, DT, 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), static_cast<const int*>(length),
+  decode_split_kernel<float, D><<<grid, DT, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(kc),
+      static_cast<const float*>(vc), static_cast<const int*>(length),
       static_cast<float*>(part), S, hb, rep, split_len, scale);
-  decode_combine_kernel<T, D><<<bh / hb, D, 0, s>>>(
-      static_cast<const float*>(part), static_cast<T*>(out), hb, n_splits);
+  decode_combine_kernel<float, D, false><<<dim3(bh / hb, hb), D, 0, s>>>(
+      static_cast<const float*>(part), static_cast<float*>(out), hb,
+      n_splits);
+  return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(const void* q, const void* kc, const void* vc,
-             const void* length, void* part, void* out, int bh, int S, int d,
-             int hb, int rep, int n_splits, int split_len, float scale,
-             cudaStream_t s) {
-  switch (d) {
-    case 16: launch<T, 16>(q, kc, vc, length, part, out, bh, S, hb, rep,
-                           n_splits, split_len, scale, s); return 0;
-    case 32: launch<T, 32>(q, kc, vc, length, part, out, bh, S, hb, rep,
-                           n_splits, split_len, scale, s); return 0;
-    case 64: launch<T, 64>(q, kc, vc, length, part, out, bh, S, hb, rep,
-                           n_splits, split_len, scale, s); return 0;
-    case 128: launch<T, 128>(q, kc, vc, length, part, out, bh, S, hb, rep,
-                             n_splits, split_len, scale, s); return 0;
-    default: return (int)cudaErrorInvalidValue;
-  }
+template <int D>
+int launch_bf16(const void* q, const void* kc, const void* vc,
+                const void* length, void* part, void* out, int bh, int S,
+                int hb, int rep, int n_splits, int split_len, float scale,
+                cudaStream_t s) {
+  constexpr int smem = dk::Layout<(D < 64 ? 64 : D)>::ALLOC;
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap km, vm;
+  CUresult r = encode_heads_bf16(&km, fn, kc, bh / rep, S, D, dk::T);
+  if (r == CUDA_SUCCESS)
+    r = encode_heads_bf16(&vm, fn, vc, bh / rep, S, D, dk::T);
+  if (r != CUDA_SUCCESS) return 10000 + (int)r;
+  static unsigned long long attr_set = 0;
+  const int e = allow_smem((const void*)dk::decode_mma_kernel<D>, smem,
+                           &attr_set);
+  if (e != 0) return e;
+  const dim3 grid(n_splits, bh / hb);
+  dk::decode_mma_kernel<D><<<grid, dk::THREADS, smem, s>>>(
+      km, vm, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const int*>(length), static_cast<float*>(part), S, hb, rep,
+      split_len, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  decode_combine_kernel<__nv_bfloat16, D, true>
+      <<<dim3(bh / hb, hb), D, 0, s>>>(
+      static_cast<const float*>(part), static_cast<__nv_bfloat16*>(out), hb,
+      n_splits);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch(const void* q, const void* kc, const void* vc, const void* length,
+           void* part, void* out, int is_bf16, int bh, int S, int hb, int rep,
+           int n_splits, int split_len, float scale, cudaStream_t s) {
+  return is_bf16 ? launch_bf16<D>(q, kc, vc, length, part, out, bh, S, hb,
+                                  rep, n_splits, split_len, scale, s)
+                 : launch_f32<D>(q, kc, vc, length, part, out, bh, S, hb,
+                                 rep, n_splits, split_len, scale, s);
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  q, out: (bh, 1, d) contiguous;
 // caches: (bh / rep, S, d) contiguous; all bf16 when is_bf16 else f32;
-// d in {16, 32, 64, 128}; length: one int32 in device memory; part: f32
-// workspace of (bh / hb) * n_splits * hb * (d + 2) floats.  Each block
-// serves hb query heads (hb divides rep, hb <= 16) over split_len
-// positions.  Launches both kernels on `stream` and returns
-// cudaGetLastError() (0 on success).
+// d in {16, 32, 64, 128}; bf16 bases 16-byte aligned; length: one int32 in
+// device memory; part: f32 workspace of (bh / hb) * n_splits * hb * (d + 2)
+// floats.  Each block serves hb query heads (hb divides rep, hb <= 16) over
+// split_len positions (a multiple of 64).  Launches both kernels on
+// `stream` and returns cudaGetLastError() (0 on success), or 10000 + the
+// CUresult when a TMA descriptor cannot be encoded.
 extern "C" int decode_attention_launch(const void* q, const void* kc,
                                        const void* vc, const void* length,
                                        void* part, void* out, int is_bf16,
@@ -264,13 +587,19 @@ extern "C" int decode_attention_launch(const void* q, const void* kc,
                                        int n_splits, int split_len,
                                        float scale, void* stream) {
   if (bh < 1 || S < 1 || rep < 1 || hb < 1 || hb > HB_MAX || rep % hb ||
-      bh % rep || bh / hb > 65535 || n_splits < 1 || split_len < 1)
+      bh % rep || bh / hb > 65535 || n_splits < 1 || split_len < 1 ||
+      split_len % TK)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = is_bf16
-      ? launch_d<__nv_bfloat16>(q, kc, vc, length, part, out, bh, S, d, hb,
-                                rep, n_splits, split_len, scale, s)
-      : launch_d<float>(q, kc, vc, length, part, out, bh, S, d, hb, rep,
-                        n_splits, split_len, scale, s);
-  return rc != 0 ? rc : (int)cudaGetLastError();
+  switch (d) {
+    case 16: return launch<16>(q, kc, vc, length, part, out, is_bf16, bh, S,
+                               hb, rep, n_splits, split_len, scale, s);
+    case 32: return launch<32>(q, kc, vc, length, part, out, is_bf16, bh, S,
+                               hb, rep, n_splits, split_len, scale, s);
+    case 64: return launch<64>(q, kc, vc, length, part, out, is_bf16, bh, S,
+                               hb, rep, n_splits, split_len, scale, s);
+    case 128: return launch<128>(q, kc, vc, length, part, out, is_bf16, bh,
+                                 S, hb, rep, n_splits, split_len, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

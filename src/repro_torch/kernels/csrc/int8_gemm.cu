@@ -72,7 +72,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 // ---------------------------------------------------------------- common --
 
@@ -108,26 +112,6 @@ __device__ __forceinline__ void store_out(void* y, long long i, float v,
     static_cast<float*>(y)[i] = v;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Lets `kernel` take `smem` bytes of dynamic shared memory on the current
-// device.  The attribute is per device, so it is set once on each; `done`
-// holds a bit per device ordinal (ordinals past 63 set it every call).
-int allow_smem(const void* kernel, int smem, unsigned long long* done) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-  if (*done & bit) return 0;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem);
-  if (e != cudaSuccess) return (int)e;
-  *done |= bit;
-  return 0;
-}
-
 // ------------------------------------------------------------- design A --
 
 namespace ga {
@@ -151,54 +135,6 @@ struct Layout {
   static constexpr int BYTES = BAR_OFF + 2 * STAGES * 8;
   static constexpr int ALLOC = BYTES + 1024;               // for alignment
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" :: "r"(bar), "r"(parity) : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1) : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle.  K-major A: 8-row
-// groups of 128-byte rows, SBO = 1024 (LBO unused).  MN-major B: 8 K rows
-// of 64 contiguous columns per 1024-byte atom, SBO = 1024 between K
-// groups, LBO = CHUNK_BYTES between 64-column chunks.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4)
-         | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
-         | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32)
-         | ((uint64_t)1 << 62);
-}
 
 struct Wgmma {
   // D (64 x 64, f32) += A (64 x 16, K-major) * B (16 x 64, MN-major)
@@ -618,49 +554,6 @@ int8_gemm_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
         store_out(y, (long long)(m0 + rr) * N + n, acc[rr] * scale[n],
                   out_bf16);
   }
-}
-
-// ------------------------------------------------------ TMA descriptors --
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, looked up through the CUDA runtime
-// (no -lcuda at link time).
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
-  }
-  return fn;
-}
-
-// 2-D row-major map: rows x cols elements, row stride in bytes, box of
-// box_rows x box_cols.
-CUresult encode_2d(CUtensorMap* map, EncodeTiledFn fn, CUtensorMapDataType dt,
-                   const void* ptr, int rows, int cols, long long row_bytes,
-                   int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, dt, 2, const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 int launch_tma(const void* x, const void* w, const void* scale, void* y,

@@ -11,14 +11,17 @@ repeating the caches); `length` a scalar.  Positions >= length are masked
 with -1e30, so length = 0 gives the mean of v over all S positions.
 
 The CUDA source is `csrc/decode_attention.cu` (its header gives the bound
-and the design: the S axis is split across blocks and a second kernel
-combines the splits).  `kernels/build.py` compiles it with nvcc for
-sm_90a at first use and loads it with ctypes.  `decode_attention` takes
-the plain version only for tensors on the CPU; on a CUDA tensor it
+and the designs: the S axis is split across blocks by `split_plan` and a
+second kernel combines the splits).  `kernels/build.py` compiles it with
+nvcc for sm_90a at first use and loads it with ctypes.  `decode_attention`
+takes the plain version only for tensors on the CPU; on a CUDA tensor it
 launches the kernel or raises (`length` may be a Python int or an int
 tensor on the card — the kernel reads it from device memory, so a launch
 never syncs the host); on "meta" tensors it returns an empty meta tensor.
-`decode_attention.launches` counts calls that launched the kernel.
+The dtype picks the design (`design`): "mma" for bf16 (a TMA ring and
+tensor-core products, every head width in HEAD_DIMS), "fma" for f32.
+`decode_attention.launches` counts calls that launched the kernel and
+`decode_attention.launches_by_design` counts them per design.
 """
 from __future__ import annotations
 
@@ -35,8 +38,15 @@ from .flash_attention import _repeat, compare_to_plain
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)    # head widths the CUDA kernel is built for
 HEADS_PER_BLOCK = 16             # csrc/decode_attention.cu: HB_MAX
-TILE = 64                        # csrc/decode_attention.cu: TK
-BLOCKS_PER_SM = 4                # split S until about this many blocks/SM
+TILE = 64                        # csrc/decode_attention.cu: TK and dk::T
+BLOCKS_PER_SM = 1                # the bf16 kernel's resident blocks per SM
+DESIGNS = ("mma", "fma")
+
+
+def design(dtype) -> str:
+    """The kernel design a CUDA call in `dtype` runs: "mma" for bf16,
+    "fma" for f32."""
+    return "mma" if dtype == torch.bfloat16 else "fma"
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,11 +110,15 @@ def check_shapes(q, k_cache, v_cache, block_kv: int) -> int:
     return bh // bh_kv
 
 
+@functools.lru_cache(maxsize=1024)
 def split_plan(n_blocks: int, S: int, n_sms: int) -> tuple[int, int]:
-    """(n_splits, split_len): split S into tile-aligned pieces so that
-    about BLOCKS_PER_SM blocks per SM are in flight."""
+    """(n_splits, split_len): split S into TILE-aligned pieces, as many as
+    the n_blocks blocks of one split can take while every block of the
+    call still fits one wave of BLOCKS_PER_SM blocks per SM (at least
+    one piece, at most one per tile).  Pure: the same arguments give the
+    same plan."""
     want = max(1, min(math.ceil(S / TILE),
-                      math.ceil(BLOCKS_PER_SM * n_sms / n_blocks)))
+                      BLOCKS_PER_SM * n_sms // n_blocks))
     split_len = TILE * math.ceil(math.ceil(S / want) / TILE)
     return math.ceil(S / split_len), split_len
 
@@ -175,9 +189,12 @@ def decode_attention(q, k_cache, v_cache, length, *, block_kv: int = 512):
             split_len, scale, stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
-                           f"error {rc}")
+                           f"error {rc} (10000 + n: CUresult n of a TMA "
+                           f"descriptor)")
     decode_attention.launches += 1
+    decode_attention.launches_by_design[design(q.dtype)] += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.launches_by_design = dict.fromkeys(DESIGNS, 0)

@@ -14,11 +14,14 @@ keys at distance >= window whether or not `causal` is set
 (`repro/kernels/ref.py:flash_attention_ref` applies it only when causal).
 
 The CUDA source is `csrc/flash_attention.cu` (its header gives the bound
-and the design); `kernels/build.py` compiles it with nvcc for sm_90a at
+and the designs); `kernels/build.py` compiles it with nvcc for sm_90a at
 first use and loads it with ctypes.  `flash_attention` takes the plain
 version only for tensors on the CPU; on a CUDA tensor it launches the
 kernel or raises; on "meta" tensors it returns an empty meta tensor.
-`flash_attention.launches` counts kernel launches.
+The dtype picks the design (`design`): "wgmma" for bf16 (TMA + wgmma,
+every head width in HEAD_DIMS), "fma" for f32 (off the prefill path).
+`flash_attention.launches` counts kernel launches and
+`flash_attention.launches_by_design` counts them per design.
 """
 from __future__ import annotations
 
@@ -33,6 +36,13 @@ from .build import KernelBuild, build_library
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)    # head widths the CUDA kernel is built for
+DESIGNS = ("wgmma", "fma")
+
+
+def design(dtype) -> str:
+    """The kernel design a CUDA call in `dtype` runs: "wgmma" for bf16,
+    "fma" for f32."""
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
 
 
 @functools.lru_cache(maxsize=None)
@@ -154,8 +164,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q (bh, sq, d), k/v (bh_kv, sk, d) -> (bh, sq, d) in q's dtype.
 
     `block_q` / `block_kv` keep the TPU kernel's shape contract; the CUDA
-    kernel tiles by its own fixed blocks (128 query rows, 64 keys in
-    bf16), which changes only the order of f32 sums."""
+    kernel tiles by its own fixed blocks (128 query rows and 128-key tiles
+    in bf16), which changes only the order of f32 sums."""
     rep = check_shapes(q, k, v, block_q, block_kv)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
@@ -194,9 +204,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             int(bool(causal)), int(window), scale, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc}")
+                           f"error {rc} (10000 + n: CUresult n of a TMA "
+                           f"descriptor)")
     flash_attention.launches += 1
+    flash_attention.launches_by_design[design(q.dtype)] += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_design = dict.fromkeys(DESIGNS, 0)

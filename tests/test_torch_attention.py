@@ -9,6 +9,9 @@ from a numpy seed.
   on the CPU), at `tests/test_kernels.py`'s shapes;
 * the shape contract, the plain version only for CPU tensors, and the
   launch counters;
+* the host-side plans of the CUDA kernels (the decode split plan, heads
+  per block, the design per dtype) against hand-worked values, and the
+  build hash over included headers;
 * the per-element check that holds the card's attention kernels to their
   plain versions (`flash_attention_check`, `decode_attention_check`): it
   passes an implementation that rounds p to bf16 as the flash kernel does,
@@ -20,6 +23,8 @@ f32 (the same f32 terms summed in another order); 2**-7 in bf16 (both
 sides compute in f32 and round the output to bf16 once, so an element may
 differ by one bf16 ulp, at most 2**-7 of the largest magnitude).
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -273,6 +278,76 @@ def test_cpu_plain_meta_empty_and_no_launches():
     meta = decode_attention(tq[:, :1].to("meta"), tk.to("meta"),
                             tv.to("meta"), 9)
     assert meta.device.type == "meta" and meta.shape == (4, 1, 32)
+
+
+# --- host-side plans of the CUDA kernels -------------------------------------
+
+@pytest.mark.parametrize("n_blocks,S,n_sms,plan", [
+    (32, 32768, 132, (4, 8192)),   # qwen2-7b decode_32k: 128 blocks
+    (12, 4096, 132, (11, 384)),    # 3 x 4 kv heads: 132 // 12 = 11 pieces
+    (2, 300, 132, (5, 64)),        # one 64-position tile per piece
+    (300, 1000, 132, (1, 1024)),   # more blocks than a wave: no split
+    (1, 64, 132, (1, 64)),
+    (4, 32768, 8, (2, 16384))])    # a small card: 8 // 4 pieces
+def test_decode_split_plan(n_blocks, S, n_sms, plan):
+    """`split_plan` against hand-worked values: as many tile-aligned
+    pieces as fit one wave of one block per SM, at most one per tile."""
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
+    assert da.split_plan(n_blocks, S, n_sms) == plan
+    n_splits, split_len = plan
+    assert split_len % da.TILE == 0 and (n_splits - 1) * split_len < S
+    assert n_blocks * n_splits <= max(n_blocks,
+                                      da.BLOCKS_PER_SM * n_sms)
+
+
+@pytest.mark.parametrize("rep,hb", [(7, 7), (32, 16), (4, 4), (1, 1),
+                                    (20, 10), (17, 1)])
+def test_decode_heads_per_block(rep, hb):
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
+    assert da.heads_per_block(rep) == hb
+
+
+def test_attention_designs_by_dtype():
+    """bf16 takes the tensor-core designs, f32 the FMA kernels; both
+    wrappers count launches per design, and the CPU path counts none."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
+    assert (fa.design(torch.bfloat16), fa.design(torch.float32)) == (
+        "wgmma", "fma")
+    assert (da.design(torch.bfloat16), da.design(torch.float32)) == (
+        "mma", "fma")
+    assert set(fa.flash_attention.launches_by_design) == set(fa.DESIGNS)
+    assert set(da.decode_attention.launches_by_design) == set(da.DESIGNS)
+    before = (dict(fa.flash_attention.launches_by_design),
+              dict(da.decode_attention.launches_by_design))
+    _, (tq, tk, tv) = _arrays([(4, 64, 32), (2, 64, 32), (2, 64, 32)],
+                              "bfloat16")
+    flash_attention(tq, tk, tv)
+    decode_attention(tq[:, :1], tk, tv, 9)
+    assert (fa.flash_attention.launches_by_design,
+            da.decode_attention.launches_by_design) == before
+
+
+def test_build_tag_follows_included_headers(tmp_path):
+    """The library's hash covers every header a source includes,
+    recursively: editing a header two includes deep renames the library,
+    and so does a flag."""
+    from repro_torch.kernels import build
+    (tmp_path / "k.cu").write_text('#include <cuda.h>\n#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    src = tmp_path / "k.cu"
+    assert [p.name for p in build.included_files(src)] == [
+        "k.cu", "a.cuh", "b.cuh"]
+    tag = build.source_tag(src, ("-O3",))
+    assert build.source_tag(src, ("-O3",)) == tag
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    edited = build.source_tag(src, ("-O3",))
+    assert edited != tag
+    assert build.source_tag(src, ("-O2",)) != edited
+    csrc = [p.name for p in build.included_files(build.CSRC /
+                                                 "flash_attention.cu")]
+    assert csrc == ["flash_attention.cu", "hopper.cuh"]
 
 
 # --- the kernel-vs-plain check ----------------------------------------------

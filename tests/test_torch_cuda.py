@@ -355,7 +355,15 @@ SMOKE_FLASH, SMOKE_DECODE = _smoke_cases()
 FLASH_CASES = SMOKE_FLASH + [(1, 512, 512, 4, 4, 64, 100),
                              (2, 16, 16, 4, 2, 16, 0),
                              (1, 200, 328, 4, 2, 32, 0),
-                             (1, 64, 64, 8, 1, 128, 1)]
+                             (1, 64, 64, 8, 1, 128, 1),
+                             # ragged sk over several kv heads at d = 128:
+                             # a 2-D TMA map would read the next head
+                             (2, 104, 296, 8, 2, 128, 0),
+                             # qwen2-7b's heads at a 4096-token prompt
+                             (1, 4096, 4096, 28, 4, 128, 0),
+                             # a window with causal that skips tiles at
+                             # both ends of the later query blocks
+                             (1, 1024, 1024, 4, 2, 128, 300)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -404,6 +412,61 @@ def test_decode_kernel_matches_plain(cuda, case, dtype):
         assert decode_attention.launches == before + 1
         _attn_ok(decode_attention_check(ops.fold(got), ops.fold(q),
                                         ops.fold(kc), ops.fold(vc), length))
+
+
+def test_decode_kernel_length_at_a_split_boundary(cuda):
+    """qwen2-7b's decode_32k shape with `length` on the boundary of the
+    wrapper's splits, one past it and one short of it."""
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
+    b, S, h, kv, d = 8, 32768, 28, 4, 128
+    q, kc, vc = _attn_inputs([(b, 1, h, d), (b, S, kv, d), (b, S, kv, d)],
+                             torch.bfloat16, cuda, seed=5)
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n_splits, split_len = da.split_plan(b * kv, S, n_sms)
+    assert n_splits > 1
+    for length in (split_len - 1, split_len, split_len + 1,
+                   (n_splits - 1) * split_len + 1):
+        got = ops.decode_attention(q, kc, vc, length)
+        _attn_ok(decode_attention_check(ops.fold(got), ops.fold(q),
+                                        ops.fold(kc), ops.fold(vc), length))
+
+
+@pytest.mark.parametrize("kernel", ["flash", "decode"])
+def test_attention_kernels_repeat_bit_for_bit(cuda, kernel):
+    """Two calls on the same inputs give equal bits (fixed summation
+    orders: no atomics, splits combined in split order)."""
+    if kernel == "flash":
+        q, k, v = _attn_inputs([(1, 1024, 28, 128), (1, 1024, 4, 128),
+                                (1, 1024, 4, 128)], torch.bfloat16, cuda)
+        first = ops.flash_attention(q, k, v)
+        assert torch.equal(first, ops.flash_attention(q, k, v))
+    else:
+        q, kc, vc = _attn_inputs([(8, 1, 28, 128), (8, 8192, 4, 128),
+                                  (8, 8192, 4, 128)], torch.bfloat16, cuda)
+        first = ops.decode_attention(q, kc, vc, 5000)
+        assert torch.equal(first, ops.decode_attention(q, kc, vc, 5000))
+    assert bool(torch.isfinite(first).all())
+
+
+def test_attention_launches_by_design(cuda):
+    """bf16 calls run the tensor-core designs, f32 calls the FMA kernels;
+    each launch is counted once, under its design."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
+    for dtype, fdesign, ddesign in ((torch.bfloat16, "wgmma", "mma"),
+                                    (torch.float32, "fma", "fma")):
+        q, k, v = _attn_inputs([(4, 64, 64), (2, 64, 64), (2, 64, 64)],
+                               dtype, cuda)
+        before = (dict(fa.flash_attention.launches_by_design),
+                  dict(da.decode_attention.launches_by_design))
+        flash_attention(q, k, v)
+        decode_attention(q[:, :1].contiguous(), k, v, 9)
+        after = (fa.flash_attention.launches_by_design,
+                 da.decode_attention.launches_by_design)
+        for by, was, want in ((after[0], before[0], fdesign),
+                              (after[1], before[1], ddesign)):
+            assert {key: by[key] - was[key] for key in by} == {
+                key: int(key == want) for key in by}
 
 
 def test_decode_kernel_reads_length_on_the_card(cuda):
