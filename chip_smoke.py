@@ -5,11 +5,12 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It drives the port's three main paths on the card: the planner-gated INT8
-serving of qwen2-7b at full width (28 layers, random weights from a seed,
-INT8-quantized), its prefill forward (one 2048-token prompt through the
-flash-attention kernel), and the batched What/When/Where sweep with its
-design-space campaigns.  In order it:
+It drives the port's main paths on the card: the planner-gated serving of
+qwen2-7b at full width (28 layers, random weights from a seed) with INT8,
+FP8 and INT4 weights and with the int8 KV cache, its prefill forward (one
+2048-token prompt through the flash-attention kernel) with INT8 and FP8
+weights, and the batched What/When/Where sweep with its design-space
+campaigns.  In order it:
 
 1. prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions and the TF32 switches (both off);
@@ -30,6 +31,13 @@ design-space campaigns.  In order it:
    device time per call (`device_ms`, `library_device_ms`); and runs the
    197 calls of one decode step through `ops.int8_matmul(dataflow="ws")`,
    counting their launches;
+3b. does the same for the kernel's float8 e4m3 weight operand, on weights
+   that hold all 254 finite e4m3 codes: every qwen2-7b projection shape at
+   M = 8 (design B), 2048 (A) and `dataflow="ws"` (B), and f32 x (fma),
+   each row checked for its design and its launch counted under "fp8";
+   prints the per-step and per-forward sums beside the int8 rows' of the
+   same call (same bound: one byte a weight), and runs the 197 `ws` calls
+   of one decode step with fp8 weights;
 4. holds the flash-attention kernel against its plain version (every
    case in f32 and bf16; GQA 28/4 and 8/1; sq = sk and sq < sk; a window;
    d = 64 and 128), element by element within the bounds of ATTN_TOL_DOC,
@@ -81,14 +89,32 @@ design-space campaigns.  In order it:
    at a 16-row block) under the serve's prefill table, against
    `ServeSession.prefill` (token by token): last-position logits within
    LOGIT_TOL·max|ref| and the greedy next tokens;
-12. prints one JSON line of kernel numbers, the card line, and last
+12. serves the INT8 weights again with `RunConfig(kv_cache_dtype="int8")`
+   (int8 codes and bf16 scales in the cache): the first greedy tokens
+   agree with the bf16-KV serve on at least MIN_TOKEN_AGREEMENT lanes;
+   then frees the INT8 weights;
+13. serves at `precision="fp8"` (weights drawn again from seed 0, FP8-
+   quantized): all 8 labels on `cim-fp8-pallas`, exactly (16 + 16) x 197
+   launches, all on design B and all with an e4m3 weight; the ungated
+   session 0 launches; first-step logits and greedy tokens as in phase 9;
+   ms/step, tokens/s and peak memory beside the INT8 serve's;
+14. runs the prefill forward on those FP8 weights (phase 10's prompt and
+   `attn_impl="pallas"`): 28 flash launches on "wgmma", 197 int8_gemm
+   launches on design A with an e4m3 weight, logits against the same
+   forward ungated (the dequant route) within LOGIT_TOL·max|ref|, the wall
+   time and a traced forward's device time by kernel; then frees them;
+15. serves at `precision="int4"` as phase 13 (`cim-int4-pallas`; the
+   nibbles are unpacked to int8 before the kernel, so all launches are
+   on an int8 weight);
+16. prints one JSON line of kernel numbers, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Each kernel's launch count in that line comes from its own main path
 (the default-grid campaign for sweep_eval; for int8_gemm, which has
-three entries, each with its design: the gated serve, the prefill
-forward, and the 197 calls of one decode step through
-`ops.int8_matmul(dataflow="ws")`; the prefill forward for
+seven entries, each with its design and weight format: the gated INT8
+serve, the INT8 prefill forward, the 197 calls of one decode step
+through `ops.int8_matmul(dataflow="ws")`, the same three with FP8
+weights, and the gated INT4 serve; the prefill forward for
 flash_attention; one call of the public wrapper for decode_attention),
 counted from 0 just before that path ran.
 
@@ -209,21 +235,39 @@ def bound_parts_ms(m: int, k: int, n: int, x_bytes: int,
     return 1e3 * moved / HBM_BYTES_PER_S, 1e3 * 2.0 * m * n * k / peak_ops
 
 
+def gemm_weight(torch, weights, k, n, gen):
+    """A (K, N) weight on the card and a scale for it: random int8 codes,
+    or ("fp8") float8 e4m3 bytes whose first 254 elements are the 254
+    finite codes in order, the rest drawn from them."""
+    s = torch.rand(n, generator=gen, device="cuda") * 0.02 + 1e-3
+    if weights == "int8":
+        return torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                             dtype=torch.int8), s
+    codes = torch.tensor([c for c in range(256) if c & 0x7F != 0x7F],
+                         dtype=torch.uint8, device="cuda")
+    idx = torch.randint(0, codes.numel(), (k * n,), generator=gen,
+                        device="cuda")
+    idx[:codes.numel()] = torch.arange(codes.numel(), device="cuda")
+    return codes[idx].reshape(k, n).view(torch.float8_e4m3fn), s / 448
+
+
 def check_kernel(torch, int8_gemm, int8_gemm_ref, m, k, n, dtype,
-                 dataflow="os") -> dict:
+                 dataflow="os", weights="int8") -> dict:
     """Kernel vs plain version at one shape (f32 output, and the output in
     x's dtype, as the gated route asks for it, bit-equal to the f32 one
     cast), the design that ran, and the kernel's, the plain version's and
-    the yardstick's times with the output in x's dtype."""
+    the yardstick's times with the output in x's dtype.  `weights` is the
+    weight format, "int8" or "fp8" (see gemm_weight)."""
     gen = torch.Generator(device="cuda").manual_seed(m * 7919 + k + n)
     x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
-    q = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
-                      dtype=torch.int8)
-    s = torch.rand(n, generator=gen, device="cuda") * 0.02 + 1e-3
+    q, s = gemm_weight(torch, weights, k, n, gen)
     before = dict(int8_gemm.launches_by_design)
+    fmt_before = dict(int8_gemm.launches_by_format)
     got = int8_gemm(x, q, s, dataflow=dataflow)
     design = "+".join(d for d, c in int8_gemm.launches_by_design.items()
                       if c != before[d])
+    fmt_ran = "+".join(f for f, c in int8_gemm.launches_by_format.items()
+                       if c != fmt_before[f])
     want = int8_gemm_ref(x, q, s)
     same_cast = torch.equal(int8_gemm(x, q, s, out_dtype=dtype,
                                       dataflow=dataflow), got.to(dtype))
@@ -231,11 +275,11 @@ def check_kernel(torch, int8_gemm, int8_gemm_ref, m, k, n, dtype,
     ref_max = want.abs().max().item()
     err = (got - want).abs().max().item()
     row = {"M": m, "K": k, "N": n, "dtype": str(dtype).split(".")[-1],
-           "dataflow": dataflow, "design": design,
+           "dataflow": dataflow, "design": design, "weights": weights,
            "max_abs_err": err, "max_rel_err": err / ref_max,
            "out_cast_equal": same_cast,
            "ok": bool(torch.isfinite(got).all().item())
-           and err <= TOL * ref_max and same_cast}
+           and err <= TOL * ref_max and same_cast and fmt_ran == weights}
     peak = 989e12 if dtype == torch.bfloat16 else 67e12
     row["bytes_ms"], row["ops_ms"] = bound_parts_ms(
         m, k, n, x.element_size(), peak, x.element_size())
@@ -276,10 +320,13 @@ def top2_gaps(logits) -> list[float]:
 
 
 def reset_counts(wrapper) -> None:
-    """Set a kernel wrapper's launch counts, in all and per design, to 0."""
+    """Set a kernel wrapper's launch counts, in all, per design and (for
+    int8_gemm) per weight format, to 0."""
     wrapper.launches = 0
-    for key in wrapper.launches_by_design:
-        wrapper.launches_by_design[key] = 0
+    for counts in (wrapper.launches_by_design,
+                   getattr(wrapper, "launches_by_format", {})):
+        for key in counts:
+            counts[key] = 0
 
 
 def profile_window(torch, fn) -> dict:
@@ -480,7 +527,8 @@ def main() -> int:
     from repro_torch.kernels.int8_gemm import int8_gemm, int8_gemm_ref
     from repro_torch.launch import campaign as campaign_cli
     from repro_torch.models import forward, init, n_periods, route_trace
-    from repro_torch.models.layers import CIM_ROUTE
+    from repro_torch.models.layers import (CIM_FP8_ROUTE, CIM_INT4_ROUTE,
+                                           CIM_ROUTE)
     from repro_torch.serving import DecodeCore, ServeSession, make_prefill
     i8_mod = importlib.import_module("repro_torch.kernels.int8_gemm")
     sw_mod = importlib.import_module("repro_torch.kernels.sweep_eval")
@@ -537,8 +585,10 @@ def main() -> int:
     cases.append((BATCH, d, d, torch.float32))
     rows = [check_kernel(torch, int8_gemm, int8_gemm_ref, *case)
             for case in cases]
-    for r in rows:
-        print(f"int8_gemm M={r['M']} K={r['K']} N={r['N']} {r['dtype']} "
+
+    def print_row(r):
+        print(f"int8_gemm {r['weights']} weight M={r['M']} K={r['K']} "
+              f"N={r['N']} {r['dtype']} "
               f"dataflow={r['dataflow']} design {r['design']}: "
               f"max|d|={r['max_abs_err']!r} max|d|/max|ref|="
               f"{r['max_rel_err']!r} (tol {TOL}), {r['dtype']} output == "
@@ -549,17 +599,20 @@ def main() -> int:
               f"({r['bound_ms'] / r['ms']:.1%} of bound) | plain "
               f"{r['plain_ms']!r} ms | library_ms {r['library_ms']!r} ms "
               f"(torch.matmul on a pre-dequantized {r['dtype']} weight: "
-              f"{r['w_bytes_x']}x the int8 weight bytes) | profiler device "
+              f"{r['w_bytes_x']}x the {r['weights']} weight bytes) | "
+              f"profiler device "
               f"times: kernel {r['device_ms']!r} ms "
               f"({r['bound_ms'] / r['device_ms']:.1%} of bound), library "
               f"{r['library_device_ms']!r} ms")
+    for r in rows:
+        print_row(r)
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise RuntimeError(f"int8_gemm disagrees with its plain version: "
                            f"{bad}")
 
-    def per_call_sum(m, dataflow):
-        at = {(r["K"], r["N"]): r for r in rows
+    def per_call_sum(m, dataflow, src=None):
+        at = {(r["K"], r["N"]): r for r in (rows if src is None else src)
               if r["M"] == m and r["dtype"] == "bfloat16"
               and r["dataflow"] == dataflow}
         out = {key: sum(cnt * at[kn][key] for kn, cnt in step_shapes.items())
@@ -584,32 +637,38 @@ def main() -> int:
               f"{agg['device_ms']!r} ms "
               f"({agg['bound_ms'] / agg['device_ms']:.1%} of bound), library "
               f"{agg['library_device_ms']!r} ms [{card}]")
-    # the ws main path: the 197 calls of one decode step through the
-    # public wrapper, counted from 0
-    ws_inputs = []
-    for (k, n), cnt in step_shapes.items():
-        gen = torch.Generator(device="cuda").manual_seed(k + n)
-        ws_inputs.append((torch.randn((BATCH, k), generator=gen,
-                                      device="cuda").to(torch.bfloat16),
-                          torch.randint(-127, 128, (k, n), generator=gen,
-                                        device="cuda", dtype=torch.int8),
-                          torch.rand(n, generator=gen, device="cuda") * 0.02
-                          + 1e-3, cnt))
-    reset_counts(int8_gemm)
-    for x_, q_, s_, cnt in ws_inputs:
-        for _ in range(cnt):
-            y_ = ops.int8_matmul(x_, q_, s_, dataflow="ws")
-    torch.cuda.synchronize()
-    ws_launches = int8_gemm.launches
-    ws_by_design = dict(int8_gemm.launches_by_design)
-    print(f"ops.int8_matmul(dataflow='ws') over the {calls_per_step} calls "
-          f"of one decode step at batch {BATCH}: launches {ws_launches}, by "
-          f"design {ws_by_design}")
-    if ws_launches != calls_per_step or ws_by_design["B"] != calls_per_step \
-            or not bool(torch.isfinite(y_).all()):
-        raise RuntimeError(f"the ws path launched {ws_by_design}")
-    del ws_inputs, y_
-    torch.cuda.empty_cache()
+    def ws_path(weights):
+        """The ws main path: the 197 calls of one decode step through the
+        public wrapper with `weights`, counted from 0."""
+        ws_inputs = []
+        for (k, n), cnt in step_shapes.items():
+            gen = torch.Generator(device="cuda").manual_seed(k + n)
+            x_ = torch.randn((BATCH, k), generator=gen,
+                             device="cuda").to(torch.bfloat16)
+            ws_inputs.append((x_, *gemm_weight(torch, weights, k, n, gen),
+                              cnt))
+        reset_counts(int8_gemm)
+        for x_, q_, s_, cnt in ws_inputs:
+            for _ in range(cnt):
+                y_ = ops.int8_matmul(x_, q_, s_, dataflow="ws")
+        torch.cuda.synchronize()
+        n_launched = int8_gemm.launches
+        by_design = dict(int8_gemm.launches_by_design)
+        by_format = dict(int8_gemm.launches_by_format)
+        print(f"ops.int8_matmul(dataflow='ws') over the {calls_per_step} "
+              f"calls of one decode step at batch {BATCH}, {weights} "
+              f"weights: launches {n_launched}, by design {by_design}, by "
+              f"weight format {by_format}")
+        if n_launched != calls_per_step or by_design["B"] != calls_per_step \
+                or by_format[weights] != calls_per_step \
+                or not bool(torch.isfinite(y_).all()):
+            raise RuntimeError(f"the ws path launched {by_design}, "
+                               f"{by_format}")
+        del ws_inputs, y_
+        torch.cuda.empty_cache()
+        return n_launched
+
+    ws_launches = ws_path("int8")
     per_fwd = per_call_sum(PREFILL, "os")
     print(f"int8_gemm per prefill forward at M = {PREFILL} ({calls_per_step}"
           f" calls, design {per_fwd['design']}): kernel {per_fwd['ms']!r} "
@@ -619,6 +678,47 @@ def main() -> int:
           f" ms (CUDA-event times); device times: kernel "
           f"{per_fwd['device_ms']!r} ms, library "
           f"{per_fwd['library_device_ms']!r} ms [{card}]")
+
+    # --- 3b. the FP8 e4m3 weight operand vs plain version, per design -------
+    fp8_cases = [(m, k, n, torch.bfloat16, "os", "fp8")
+                 for m in (BATCH, PREFILL) for (k, n) in step_shapes]
+    fp8_cases += [(BATCH, k, n, torch.bfloat16, "ws", "fp8")
+                  for (k, n) in step_shapes]
+    fp8_cases.append((BATCH, d, d, torch.float32, "os", "fp8"))
+    fp8_rows = [check_kernel(torch, int8_gemm, int8_gemm_ref, *case)
+                for case in fp8_cases]
+    for r in fp8_rows:
+        print_row(r)
+    bad = [r for r in fp8_rows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"int8_gemm with an fp8 weight disagrees with its "
+                           f"plain version: {bad}")
+    fp8_design = {(BATCH, "os", "bfloat16"): "B", (PREFILL, "os", "bfloat16"):
+                  "A", (BATCH, "ws", "bfloat16"): "B",
+                  (BATCH, "os", "float32"): "fma"}
+    if any(r["design"] != fp8_design[(r["M"], r["dataflow"], r["dtype"])]
+           for r in fp8_rows):
+        raise RuntimeError(f"int8_gemm ran an unexpected design with an fp8 "
+                           f"weight: "
+                           f"{[(r['M'], r['design']) for r in fp8_rows]}")
+    fp8_step = per_call_sum(BATCH, "os", fp8_rows)
+    fp8_ws_step = per_call_sum(BATCH, "ws", fp8_rows)
+    fp8_fwd = per_call_sum(PREFILL, "os", fp8_rows)
+    for what, f8, i8 in (("per decode step at batch 8", fp8_step, per_step),
+                         ("per decode step, dataflow='ws'", fp8_ws_step,
+                          ws_step),
+                         (f"per prefill forward at M = {PREFILL}", fp8_fwd,
+                          per_fwd)):
+        print(f"int8_gemm {what} ({calls_per_step} calls, design "
+              f"{f8['design']}), fp8 weights against int8 weights in this "
+              f"call: kernel {f8['ms']!r} ms (int8 {i8['ms']!r}), device "
+              f"{f8['device_ms']!r} ms (int8 {i8['device_ms']!r}), bound "
+              f"{f8['bound_ms']!r} ms (the int8 bound: both are 1 byte a "
+              f"weight), plain {f8['plain_ms']!r} ms, library_ms "
+              f"{f8['library_ms']!r} ms, library device "
+              f"{f8['library_device_ms']!r} ms (torch.matmul on the "
+              f"dequantized bf16 weight) [{card}]")
+    fp8_ws_launches = ws_path("fp8")
 
     # --- 4. flash attention vs plain version; timed at the prefill shape -----
     frows = check_flash(torch, ops, fa_mod)
@@ -994,6 +1094,7 @@ def main() -> int:
     steps = PROMPT + NEW
     expected = steps * calls_per_step
     step_ms = 1e3 * elapsed / steps
+    i8_tokens_s = BATCH * NEW / elapsed
     print(f"serve gated: {steps} steps (prefill {PROMPT} + decode {NEW}) "
           f"at batch {BATCH} in {elapsed!r} s: {step_ms!r} ms/step, "
           f"{BATCH * NEW / elapsed!r} new tokens/s "
@@ -1043,21 +1144,26 @@ def main() -> int:
     if diff > LOGIT_TOL * ref_max or agree < MIN_TOKEN_AGREEMENT:
         raise RuntimeError("gated and ungated first-step logits disagree")
 
-    # traced run: where the time of a gated step goes on the device
-    gated.reset()
-    n_traced = 4
-    prof = profile_window(torch, lambda: gated.prefill(prompt[:, :n_traced]))
-    if prof["busy_ms"] > 0:
-        print(f"traced gated steps ({n_traced}, profiler on): wall "
+    def trace_steps(sess, what, n_traced=4):
+        """Where the time of a gated step goes on the device: n_traced
+        prefill-phase steps of `sess` under the profiler."""
+        sess.reset()
+        prof = profile_window(
+            torch, lambda: sess.prefill(prompt[:, :n_traced]))
+        sess.reset()
+        if prof["busy_ms"] <= 0:
+            print(f"traced {what} steps: the profiler recorded no device "
+                  f"time (device busy share not measured)")
+            return
+        print(f"traced {what} steps ({n_traced}, profiler on): wall "
               f"{prof['wall_ms'] / n_traced!r} ms/step, device busy "
               f"{prof['busy_ms'] / n_traced!r} ms/step, device idle share "
               f"{1 - prof['busy_ms'] / prof['wall_ms']!r}")
         for name, us in prof["kernels"][:8]:
             print(f"  device {us / 1e3 / n_traced!r} ms/step "
                   f"({us / 1e3 / prof['busy_ms']:.1%}): {name[:90]}")
-    else:
-        print("traced gated steps: the profiler recorded no device time "
-              "(device busy share not measured)")
+
+    trace_steps(gated, "gated")
 
     # --- 10. the prefill forward at full width ------------------------------
     prc = RunConfig(attn_impl="pallas")
@@ -1171,7 +1277,208 @@ def main() -> int:
             diff > LOGIT_TOL * ref_max or agree < MIN_TOKEN_AGREEMENT):
         raise RuntimeError("forward and token-by-token prefill disagree")
 
-    # --- 12. result lines ----------------------------------------------------
+    # --- 12. the int8 KV cache on the INT8 serve ----------------------------
+    kv_sess = ServeSession(cfg, RunConfig(kv_cache_dtype="int8"),
+                           gated.params, max_len=max_len, batch=BATCH,
+                           quantize=True)
+    kv_sess.generate(prompt[:, :2], 1)             # warm-up, then start over
+    kv_sess.reset()
+    torch.cuda.synchronize()
+    reset_counts(int8_gemm)
+    t0 = time.perf_counter()
+    kv_tokens = kv_sess.generate(prompt, NEW)
+    torch.cuda.synchronize()
+    t_kv = time.perf_counter() - t0
+    kv_launches = dict(int8_gemm.launches_by_design)
+    kv_agree = int((kv_tokens[:, 0] == tokens[:, 0]).sum().item())
+    print(f"serve gated, int8 KV cache (kv_cache_dtype='int8', INT8 weights):"
+          f" {steps} steps in {t_kv!r} s: {1e3 * t_kv / steps!r} ms/step "
+          f"(bf16 KV cache: {step_ms!r}), {BATCH * NEW / t_kv!r} new "
+          f"tokens/s; cache {kv_sess.cache[0]['k'].dtype} + bf16 scales; "
+          f"int8_gemm launches by design {kv_launches}; greedy first tokens "
+          f"agree with the bf16-KV serve on {kv_agree} of {BATCH} (need "
+          f"{MIN_TOKEN_AGREEMENT}); whole streams on "
+          f"{int((kv_tokens == tokens).all(1).sum())} lanes [{card}]")
+    if kv_sess.cache[0]["k"].dtype != torch.int8 or (
+            kv_launches["B"] != expected) or kv_agree < MIN_TOKEN_AGREEMENT:
+        raise RuntimeError("the int8-KV serve disagrees with the bf16-KV "
+                           "serve")
+    trace_steps(kv_sess, "int8-KV gated")
+    del kv_sess, gated, ungated                 # free the INT8 tree
+    torch.cuda.empty_cache()
+
+    # --- 13.-15. FP8 and INT4 weights: serve, and the FP8 prefill -----------
+    def serve_at(precision):
+        """Serve batch 8 at `precision` on weights drawn from seed 0, gated
+        then ungated on the same weights; returns (numbers, gated session).
+        Checks the routes, the launch counts by design and weight format,
+        and the first-step logits and greedy tokens gated vs ungated."""
+        cim = {"fp8": CIM_FP8_ROUTE, "int4": CIM_INT4_ROUTE}[precision]
+        fmt = {"fp8": "fp8", "int4": "int8"}[precision]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                      device="cuda")
+        sess = ServeSession(cfg, rc, params, max_len=max_len, batch=BATCH,
+                            quantize=True, precision=precision)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+        del params
+        torch.cuda.empty_cache()
+        report = sess.route_report()
+        print(f"serve at precision={precision!r}: init + plan + quantize "
+              f"{t_setup:.2f} s; routes "
+              f"{ {lab: r['route'] for lab, r in report.items()} }")
+        if sorted(report) != sorted(projections) or any(
+                r["route"] != cim for r in report.values()):
+            raise RuntimeError(f"route report is not all {cim}: {report}")
+        sess.generate(prompt[:, :2], 1)             # warm-up
+        sess.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(int8_gemm)
+        t0 = time.perf_counter()
+        toks = sess.generate(prompt, NEW)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        out = {"launches": int8_gemm.launches,
+               "by_design": dict(int8_gemm.launches_by_design),
+               "by_format": dict(int8_gemm.launches_by_format),
+               "step_ms": 1e3 * elapsed / steps,
+               "tokens_s": BATCH * NEW / elapsed,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        print(f"serve gated at {precision}: {steps} steps at batch {BATCH} in "
+              f"{elapsed!r} s: {out['step_ms']!r} ms/step (INT8 weights: "
+              f"{step_ms!r}), {out['tokens_s']!r} new tokens/s (INT8: "
+              f"{i8_tokens_s!r}); peak memory "
+              f"{out['peak_gib']!r} GiB (INT8: {peak / 2 ** 30!r}); int8_gemm "
+              f"launches {out['launches']} (expected {expected}), by design "
+              f"{out['by_design']}, by weight format {out['by_format']} "
+              f"[{card}]")
+        if out["launches"] != expected or out["by_design"]["B"] != expected \
+                or out["by_format"][fmt] != expected:
+            raise RuntimeError(f"the {precision} serve launched int8_gemm "
+                               f"{out}")
+        if toks.shape != (BATCH, NEW) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab)).all()):
+            raise RuntimeError(f"bad token stream {toks.shape}")
+        ung = ServeSession(cfg, rc, sess.params, max_len=max_len,
+                           batch=BATCH, quantize=True, gated=False,
+                           precision=precision)
+        if any(r["route"] == cim for r in ung.route_report().values()):
+            raise RuntimeError("the ungated session routes a label to the "
+                               "kernel")
+        reset_counts(int8_gemm)
+        t0 = time.perf_counter()
+        ung_toks = ung.generate(prompt, NEW)
+        torch.cuda.synchronize()
+        t_ung = time.perf_counter() - t0
+        if int8_gemm.launches != 0:
+            raise RuntimeError(f"ungated {precision} session launched "
+                               f"int8_gemm {int8_gemm.launches} times")
+        sess.reset()
+        ung.reset()
+        lg = sess.prefill(prompt[:, :1]).float()
+        lu = ung.prefill(prompt[:, :1]).float()
+        if not (torch.isfinite(lg).all() and torch.isfinite(lu).all()):
+            raise RuntimeError("non-finite first-step logits")
+        diff = (lg - lu).abs().max().item()
+        ref_max = lu.abs().max().item()
+        agree = int((lg.argmax(-1) == lu.argmax(-1)).sum().item())
+        print(f"serve ungated at {precision}: {1e3 * t_ung / steps!r} "
+              f"ms/step, 0 int8_gemm launches; greedy streams equal on "
+              f"{int((toks == ung_toks).all(1).sum())} of {BATCH} lanes; "
+              f"first-step logits gated vs ungated: max|d|={diff!r}, "
+              f"max|ref|={ref_max!r} (tol {LOGIT_TOL}·max|ref|); greedy "
+              f"tokens agree on {agree} of {BATCH} (need "
+              f"{MIN_TOKEN_AGREEMENT}); top-2 gap per lane: gated "
+              f"{top2_gaps(lg)}, ungated {top2_gaps(lu)}")
+        if diff > LOGIT_TOL * ref_max or agree < MIN_TOKEN_AGREEMENT:
+            raise RuntimeError(f"gated and ungated first-step logits "
+                               f"disagree at {precision}")
+        sess.reset()
+        del ung
+        trace_steps(sess, f"{precision} gated")
+        return out, sess
+
+    fp8_serve, fp8_sess = serve_at("fp8")
+
+    t0 = time.perf_counter()
+    core8 = DecodeCore(cfg, prc, fp8_sess.params, quantize=True,
+                       precision="fp8", plan_batch=BATCH, plan_max_len=PREFILL,
+                       device="cuda")
+    ptable8 = core8.prefill_plan_table
+    gates8 = {lab: ptable8.use_cim(lab) for lab in projections}
+    print(f"fp8 prefill core: planned in {time.perf_counter() - t0:.2f} s; "
+          f"prefill plan {ptable8.digest}; gates {gates8}")
+    if not all(gates8.values()):
+        raise RuntimeError(f"the prefill table does not gate every "
+                           f"projection onto CiM: {gates8}")
+    prefill8 = make_prefill(cfg, prc, ptable8)
+    prefill8(core8.params, long_prompt)                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa_mod.flash_attention)     # the fp8 prefill path starts
+    reset_counts(int8_gemm)
+    t0 = time.perf_counter()
+    logits8 = prefill8(core8.params, long_prompt)
+    torch.cuda.synchronize()
+    fp8_prefill_s = time.perf_counter() - t0
+    fp8_flash = dict(fa_mod.flash_attention.launches_by_design)  # ... ends
+    fp8_prefill_i8 = int8_gemm.launches
+    fp8_prefill_design = dict(int8_gemm.launches_by_design)
+    fp8_prefill_format = dict(int8_gemm.launches_by_format)
+    print(f"prefill forward at fp8: 1 x {PREFILL} tokens in "
+          f"{fp8_prefill_s!r} s (INT8 weights: {prefill_s!r} s): "
+          f"{PREFILL / fp8_prefill_s!r} prefill tokens/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30!r} GiB; "
+          f"flash_attention launches by design {fp8_flash}; int8_gemm "
+          f"launches {fp8_prefill_i8} (expected {calls_per_step}), by design "
+          f"{fp8_prefill_design}, by weight format {fp8_prefill_format} "
+          f"[{card}]")
+    if fa_mod.flash_attention.launches != L or fp8_flash["wgmma"] != L or (
+            fp8_prefill_i8 != calls_per_step) or (
+            fp8_prefill_design["A"] != calls_per_step) or (
+            fp8_prefill_format["fp8"] != calls_per_step):
+        raise RuntimeError(f"the fp8 prefill launched flash_attention "
+                           f"{fp8_flash} and int8_gemm {fp8_prefill_design}, "
+                           f"{fp8_prefill_format}")
+    if logits8.shape != (1, PREFILL, cfg.vocab) or not bool(
+            torch.isfinite(logits8).all()):
+        raise RuntimeError(f"bad fp8 prefill logits {tuple(logits8.shape)}")
+    ref8 = make_prefill(cfg, prc, ptable8.ungated())(core8.params,
+                                                      long_prompt)
+    diff = (logits8.float() - ref8.float()).abs().max().item()
+    ref_max = ref8.float().abs().max().item()
+    agree = (logits8.argmax(-1) == ref8.argmax(-1)).float().mean().item()
+    print(f"fp8 prefill logits, gated (the kernel, design A) vs ungated (the "
+          f"dequant route, torch.matmul on qf.to(bf16)): max|d|={diff!r}, "
+          f"max|ref|={ref_max!r} (tol {LOGIT_TOL}·max|ref|); greedy tokens "
+          f"agree at {agree:.2%} of {PREFILL} positions")
+    if diff > LOGIT_TOL * ref_max:
+        raise RuntimeError("the fp8 prefill disagrees with its dequant route")
+    del logits8, ref8
+    torch.cuda.empty_cache()
+    prof = profile_window(torch, lambda: prefill8(core8.params, long_prompt))
+    if prof["busy_ms"] > 0:
+        print(f"traced fp8 prefill forward (profiler on): wall "
+              f"{prof['wall_ms']!r} ms, device busy {prof['busy_ms']!r} ms, "
+              f"device idle share {1 - prof['busy_ms'] / prof['wall_ms']!r}")
+        for name, us in prof["kernels"][:10]:
+            print(f"  device {us / 1e3!r} ms ({us / 1e3 / prof['busy_ms']:.1%}"
+                  f"): {name[:90]}")
+    else:
+        print("traced fp8 prefill forward: the profiler recorded no device "
+              "time (device busy share not measured)")
+    del core8, prefill8, fp8_sess
+    torch.cuda.empty_cache()
+
+    int4_serve, int4_sess = serve_at("int4")
+    del int4_sess
+    torch.cuda.empty_cache()
+
+    # --- 16. result lines ----------------------------------------------------
     kernels = [{
         "name": "int8_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_gemm.cu",
@@ -1186,6 +1493,7 @@ def main() -> int:
         "device_ms": per_step["device_ms"],
         "library_device_ms": per_step["library_device_ms"],
         "path": "decode step", "design": per_step["design"],
+        "weights": "int8",
         "work": f"the {calls_per_step} calls of one {ARCH} decode step at "
                 f"batch {BATCH} (per-shape times x calls per step); "
                 f"launches counted over the gated serve's "
@@ -1204,6 +1512,7 @@ def main() -> int:
         "device_ms": per_fwd["device_ms"],
         "library_device_ms": per_fwd["library_device_ms"],
         "path": "prefill forward", "design": per_fwd["design"],
+        "weights": "int8",
         "work": f"the {calls_per_step} calls of one {ARCH} prefill forward "
                 f"at M = {PREFILL} (per-shape times x calls per "
                 f"forward); "
@@ -1222,10 +1531,50 @@ def main() -> int:
         "device_ms": ws_step["device_ms"],
         "library_device_ms": ws_step["library_device_ms"],
         "path": "ops.int8_matmul(dataflow='ws')", "design": ws_step["design"],
+        "weights": "int8",
         "work": f"the {calls_per_step} calls of one {ARCH} decode step at "
                 f"batch {BATCH} through ops.int8_matmul(dataflow='ws') "
                 f"(per-shape times x calls per step); launches counted "
-                f"around those {calls_per_step} calls"}, {
+                f"around those {calls_per_step} calls"}]
+    fp8_src = {"fp8 decode step": (fp8_step, fp8_serve["launches"],
+                                   "src/repro/kernels/int8_gemm.py:33",
+                                   f"the gated fp8 serve's {steps} steps"),
+               "fp8 prefill forward": (fp8_fwd, fp8_prefill_i8,
+                                       "src/repro/kernels/int8_gemm.py:33",
+                                       "one fp8 prefill forward"),
+               "fp8 ops.int8_matmul(dataflow='ws')": (
+                   fp8_ws_step, fp8_ws_launches,
+                   "src/repro/kernels/int8_gemm.py:53",
+                   f"the {calls_per_step} calls of one decode step through "
+                   f"ops.int8_matmul(dataflow='ws')"),
+               "int4 decode step": (per_step, int4_serve["launches"],
+                                    "src/repro/kernels/int8_gemm.py:33",
+                                    f"the gated int4 serve's {steps} steps")}
+    for path, (agg, n, replaces, counted) in fp8_src.items():
+        int4 = path.startswith("int4")
+        wdesc = ("int8 (the int8 rows: the kernel reads the unpacked int4 "
+                 "weights as int8)" if int4 else "e4m3")
+        shape = (f"prefill forward at M = {PREFILL}" if "prefill" in path
+                 else f"decode step at batch {BATCH}")
+        kernels.append({
+            "name": "int8_gemm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/int8_gemm.cu",
+            "replaces": replaces, "launches": n,
+            "max_abs_err": agg["max_abs_err"],
+            "ms": agg["ms"], "plain_ms": agg["plain_ms"],
+            "bound_ms": agg["bound_ms"],
+            "bound_by": ("bytes" if agg["bytes_ms"] >= agg["ops_ms"]
+                         else "operations"),
+            "library_ms": agg["library_ms"],
+            "device_ms": agg["device_ms"],
+            "library_device_ms": agg["library_device_ms"],
+            "path": path, "design": agg["design"],
+            "weights": ("int4, unpacked to int8 before the kernel" if int4
+                        else "float8_e4m3fn"),
+            "work": (f"the {calls_per_step} calls of one {ARCH} {shape} "
+                     f"with {wdesc} weights (per-shape times x calls); "
+                     f"launches counted over {counted}")})
+    kernels += [{
         "name": "sweep_eval", "route": "cuda", "path": "default campaign",
         "source": "src/repro_torch/kernels/csrc/sweep_eval.cu",
         "replaces": "src/repro/kernels/sweep_eval.py:58",

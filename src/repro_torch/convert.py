@@ -13,7 +13,9 @@ def params_from_jax(tree, device="cuda"):
 
     numpy holds JAX's bfloat16 as `ml_dtypes.bfloat16`, which torch cannot
     take; such leaves go through float32 and back to torch.bfloat16, a
-    round trip that is exact."""
+    round trip that is exact.  FP8 leaves ({"qf8"}, numpy's
+    `ml_dtypes.float8_e4m3fn`) are carried as their bytes: viewed as
+    uint8, then as torch.float8_e4m3fn.  INT4 leaves ({"q4"}) are int8."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -22,4 +24,7 @@ def params_from_jax(tree, device="cuda"):
     if a.dtype.name == "bfloat16":
         return torch.tensor(a.astype(np.float32), device=device).to(
             torch.bfloat16)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.tensor(a.view(np.uint8), device=device).view(
+            torch.float8_e4m3fn)
     return torch.tensor(a, device=device)

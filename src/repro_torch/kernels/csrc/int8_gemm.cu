@@ -4,9 +4,22 @@
 // Replaces the TPU kernel src/repro/kernels/int8_gemm.py: both of its
 // dataflows, `_kernel_os` (output-stationary, the one every CiM-gated
 // projection runs) and `_kernel_ws` (weight-stationary, psums accumulated
-// across K in the output).  x is (M, K) bf16 or f32 with row stride ldx,
-// w_q is (K, N) int8 in the JAX layout (K rows, row stride ldw), scale is
-// (N,) f32, y is (M, N) contiguous.
+// across K in the output), and both weight types it is fed: int8, and the
+// float8 e4m3 weights of `quant/lowbit.py:planned_linear_fp8`, which the
+// TPU kernel upcasts to f32 in-register.  x is (M, K) bf16 or f32 with row
+// stride ldx, w_q is (K, N) int8 or e4m3 in the JAX layout (K rows, row
+// stride ldw), scale is (N,) f32, y is (M, N) contiguous.
+//
+// Weight format.  Every design is a template on WF (W_INT8, W_E4M3) that
+// changes only how a weight byte is decoded; tiles, rings and masks are
+// the same, since both formats are one byte and both decode exactly to
+// bf16 (int8: the f32 magic-number trick below; e4m3: cvt.rn.f16x2.e4m3x2,
+// exact because every e4m3 value is a normal f16, then f16 -> f32 -> bf16,
+// exact because e4m3's 3 mantissa bits and its range 2^-9 .. 448 fit
+// bf16).  TMA and cp.async move bytes, so the weight's tensor map stays a
+// 1-byte type, and a zero-filled tail byte is +0.0 in e4m3 as in int8.
+// e4m3fn's 0x7F / 0xFF (NaN) decode to NaN; the quantizer never writes
+// them.
 //
 // What bounds it on an H100 SXM: the call moves K*N weight bytes for
 // 2*M*K*N operations.  At decode (M = 8) that is 16 operations per byte,
@@ -23,7 +36,8 @@
 //   (64 x BN) in flight in a 4-stage ring, each stage with a `full` and
 //   an `empty` mbarrier.  The consumers together convert each int8
 //   weight tile once to bf16 (prmt into an f32 magic number, a subtract and
-//   cvt.rn.bf16x2.f32, 8 weights per thread step; int8 -> bf16 is exact)
+//   cvt.rn.bf16x2.f32, 8 weights per thread step; int8 -> bf16 is exact;
+//   an e4m3 tile goes through cvt.rn.f16x2.e4m3x2 instead)
 //   into a shared tile in the 128-byte-swizzled MN-major layout that
 //   `wgmma` reads as a transposed B operand (3 such tiles, so converting
 //   tile k+1 overlaps the wgmmas of tile k), fence it into the async
@@ -69,6 +83,8 @@
 // hold (__float2bfloat16_rn), so they equal that output cast to bf16.
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -93,15 +109,57 @@ __device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// 8 int8 weights (two words, lowest address first) -> 8 bf16 as 16 bytes.
-__device__ __forceinline__ uint4 i8x8_to_bf16x8(uint2 v) {
-  const uint32_t a = v.x ^ 0x80808080u, b = v.y ^ 0x80808080u;
+// The weight formats: one byte each.
+constexpr int W_INT8 = 0;
+constexpr int W_E4M3 = 1;
+
+// Two e4m3 bytes (the low 16 bits of `pair`, the lower byte first) ->
+// bf16x2 bits, the lower byte in the low half: exact (see the header).
+__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t pair) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(pair & 0xFFFFu), __NV_E4M3);
+  const float2 f = __half22float2(__half2(h));
+  return bf16x2_bits(f.x, f.y);
+}
+
+// Bytes j of weight words lo and hi -> bf16x2 bits, lo's byte in the low
+// half.
+template <int WF>
+__device__ __forceinline__ uint32_t w_pair_to_bf16x2(uint32_t lo, uint32_t hi,
+                                                     int j) {
+  if constexpr (WF == W_INT8)
+    return bf16x2_bits(i8_to_f32(lo ^ 0x80808080u, j),
+                       i8_to_f32(hi ^ 0x80808080u, j));
+  else
+    return e4m3x2_to_bf16x2(__byte_perm(lo, hi, j | ((j + 4) << 4)));
+}
+
+// 8 weights (two words, lowest address first) -> 8 bf16 as 16 bytes.
+template <int WF>
+__device__ __forceinline__ uint4 w8x8_to_bf16x8(uint2 v) {
   uint4 o;
-  o.x = bf16x2_bits(i8_to_f32(a, 0), i8_to_f32(a, 1));
-  o.y = bf16x2_bits(i8_to_f32(a, 2), i8_to_f32(a, 3));
-  o.z = bf16x2_bits(i8_to_f32(b, 0), i8_to_f32(b, 1));
-  o.w = bf16x2_bits(i8_to_f32(b, 2), i8_to_f32(b, 3));
+  if constexpr (WF == W_INT8) {
+    const uint32_t a = v.x ^ 0x80808080u, b = v.y ^ 0x80808080u;
+    o.x = bf16x2_bits(i8_to_f32(a, 0), i8_to_f32(a, 1));
+    o.y = bf16x2_bits(i8_to_f32(a, 2), i8_to_f32(a, 3));
+    o.z = bf16x2_bits(i8_to_f32(b, 0), i8_to_f32(b, 1));
+    o.w = bf16x2_bits(i8_to_f32(b, 2), i8_to_f32(b, 3));
+  } else {
+    o.x = e4m3x2_to_bf16x2(v.x);
+    o.y = e4m3x2_to_bf16x2(v.x >> 16);
+    o.z = e4m3x2_to_bf16x2(v.y);
+    o.w = e4m3x2_to_bf16x2(v.y >> 16);
+  }
   return o;
+}
+
+// One weight byte -> its exact f32 value.
+template <int WF>
+__device__ __forceinline__ float w8_to_f32(uint8_t b) {
+  if constexpr (WF == W_INT8)
+    return (float)(int8_t)b;
+  else
+    return __half2float(__half(__nv_cvt_fp8_to_halfraw(b, __NV_E4M3)));
 }
 
 __device__ __forceinline__ void store_out(void* y, long long i, float v,
@@ -161,6 +219,7 @@ struct Wgmma {
 
 // Grid (m tiles, n tiles): consecutive blocks share one weight slab, so it
 // is read from HBM about once and from L2 by the other row tiles.
+template <int WF>
 __global__ void __launch_bounds__(THREADS)
 int8_gemm_tma_kernel(const __grid_constant__ CUtensorMap xmap,
                      const __grid_constant__ CUtensorMap wmap,
@@ -212,7 +271,7 @@ int8_gemm_tma_kernel(const __grid_constant__ CUtensorMap xmap,
     const int s = kt % STAGES;
     const int bs = kt % BSTAGES;
     mbar_wait(full0 + 8 * s, (kt / STAGES) & 1);
-    // int8 (BK x BN, row-major) -> bf16 MN-major, 128-byte swizzle
+    // weight bytes (BK x BN, row-major) -> bf16 MN-major, 128-byte swizzle
     const uint8_t* wsrc = sbase + L::W_OFF + s * L::W_STAGE;
     uint8_t* bdst = sbase + L::B_OFF + bs * L::B_STAGE;
 #pragma unroll
@@ -223,7 +282,7 @@ int8_gemm_tma_kernel(const __grid_constant__ CUtensorMap xmap,
       const uint32_t off = (n / 64) * CHUNK_BYTES + (k / 8) * 1024
                            + (k % 8) * 128 + (n % 64) * 2;
       const uint32_t sw = off ^ (((off >> 7) & 7u) << 4);
-      *reinterpret_cast<uint4*>(bdst + sw) = i8x8_to_bf16x8(v);
+      *reinterpret_cast<uint4*>(bdst + sw) = w8x8_to_bf16x8<WF>(v);
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync 1, 256;\n" ::: "memory");
@@ -366,7 +425,7 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
 // Grid (column slabs, K slices).  MT = 16-row tiles per chunk of x (1, 2
 // or 4: at most 64 rows).  With one slice the block writes y (scaled);
 // with more it writes its f32 partial to part[slice] and ws_reduce adds.
-template <int MT>
+template <int MT, int WF>
 __global__ void __launch_bounds__(THREADS)
 int8_gemm_ws_kernel(const __nv_bfloat16* __restrict__ x,
                     const int8_t* __restrict__ w,
@@ -428,15 +487,15 @@ int8_gemm_ws_kernel(const __nv_bfloat16* __restrict__ x,
         const int k0 = kbase + ks * 16;
         if (k0 >= ke) break;
         const int8_t* wr = tile + (ks * 16 + 2 * kq) * BN + warp * 32 + 4 * g;
-        const uint32_t u0 = *reinterpret_cast<const uint32_t*>(wr) ^ 0x80808080u;
-        const uint32_t u1 = *reinterpret_cast<const uint32_t*>(wr + BN) ^ 0x80808080u;
-        const uint32_t u2 = *reinterpret_cast<const uint32_t*>(wr + 8 * BN) ^ 0x80808080u;
-        const uint32_t u3 = *reinterpret_cast<const uint32_t*>(wr + 9 * BN) ^ 0x80808080u;
+        const uint32_t u0 = *reinterpret_cast<const uint32_t*>(wr);
+        const uint32_t u1 = *reinterpret_cast<const uint32_t*>(wr + BN);
+        const uint32_t u2 = *reinterpret_cast<const uint32_t*>(wr + 8 * BN);
+        const uint32_t u3 = *reinterpret_cast<const uint32_t*>(wr + 9 * BN);
         uint32_t b[4][2];
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
-          b[t][0] = bf16x2_bits(i8_to_f32(u0, t), i8_to_f32(u1, t));
-          b[t][1] = bf16x2_bits(i8_to_f32(u2, t), i8_to_f32(u3, t));
+          b[t][0] = w_pair_to_bf16x2<WF>(u0, u1, t);
+          b[t][1] = w_pair_to_bf16x2<WF>(u2, u3, t);
         }
         const __nv_bfloat16* xp = xs + (p % STAGES) * MC * XROW
                                   + (lane % 16) * XROW + ks * 16
@@ -490,20 +549,20 @@ __global__ void int8_gemm_ws_reduce(const float* __restrict__ part,
   }
 }
 
-template <int MT>
+template <int MT, int WF>
 int launch_ws(const void* x, const void* w, const void* scale, void* y,
               float* part, int M, int N, int K, long long ldx,
               long long ldw, int kslice, int splits, int out_bf16,
               cudaStream_t s) {
   constexpr int smem = STAGES * PIECE + STAGES * 16 * MT * XROW * 2;
   static unsigned long long attr_set = 0;
-  const int e = allow_smem((const void*)int8_gemm_ws_kernel<MT>, smem,
+  const int e = allow_smem((const void*)int8_gemm_ws_kernel<MT, WF>, smem,
                            &attr_set);
   if (e != 0) return e;
   const int xvec16 = (uintptr_t)x % 16 == 0 && ldx % 8 == 0;
   const int wvec = (uintptr_t)w % 16 == 0 && ldw % 16 == 0;
   const dim3 grid((N + BN - 1) / BN, splits);
-  int8_gemm_ws_kernel<MT><<<grid, THREADS, smem, s>>>(
+  int8_gemm_ws_kernel<MT, WF><<<grid, THREADS, smem, s>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(scale), y, part, M, N, K, ldx, ldw, kslice,
       out_bf16, xvec16, wvec);
@@ -519,6 +578,7 @@ constexpr int F_BM = 8;     // rows of x per block
 constexpr int F_BK = 32;    // K rows of x staged per step
 
 // f32 x: FMA in f32, one column per thread over an 8-row slab of x.
+template <int WF>
 __global__ void __launch_bounds__(F_BN)
 int8_gemm_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
                      const float* __restrict__ scale, void* __restrict__ y,
@@ -540,7 +600,8 @@ int8_gemm_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
     if (n < N) {
       const int kend = min(F_BK, K - k0);
       for (int kk = 0; kk < kend; ++kk) {
-        const float wv = (float)w[(long long)(k0 + kk) * ldw + n];
+        const float wv = w8_to_f32<WF>(
+            (uint8_t)w[(long long)(k0 + kk) * ldw + n]);
 #pragma unroll
         for (int rr = 0; rr < F_BM; ++rr) acc[rr] = fmaf(xs[rr][kk], wv, acc[rr]);
       }
@@ -556,6 +617,7 @@ int8_gemm_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
+template <int WF>
 int launch_tma(const void* x, const void* w, const void* scale, void* y,
                int M, int N, int K, long long ldx, long long ldw,
                int out_bf16, cudaStream_t s) {
@@ -571,13 +633,40 @@ int launch_tma(const void* x, const void* w, const void* scale, void* y,
   if (r != CUDA_SUCCESS) return 10000 + (int)r;
   constexpr int smem = ga::Layout::ALLOC;
   static unsigned long long attr_set = 0;
-  const int e = allow_smem((const void*)ga::int8_gemm_tma_kernel, smem,
+  const int e = allow_smem((const void*)ga::int8_gemm_tma_kernel<WF>, smem,
                            &attr_set);
   if (e != 0) return e;
   const dim3 grid((M + ga::BM - 1) / ga::BM, (N + ga::BN - 1) / ga::BN);
-  ga::int8_gemm_tma_kernel<<<grid, ga::THREADS, smem, s>>>(
+  ga::int8_gemm_tma_kernel<WF><<<grid, ga::THREADS, smem, s>>>(
       xmap, wmap, static_cast<const float*>(scale), y, M, N, K, out_bf16);
   return (int)cudaGetLastError();
+}
+
+template <int WF>
+int launch_fma(const void* x, const void* w, const void* scale, void* y,
+               int M, int N, int K, long long ldx, long long ldw,
+               int out_bf16, cudaStream_t s) {
+  const dim3 grid((N + F_BN - 1) / F_BN, (M + F_BM - 1) / F_BM);
+  int8_gemm_f32_kernel<WF><<<grid, F_BN, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(scale), y, M, N, K, ldx, ldw, out_bf16);
+  return (int)cudaGetLastError();
+}
+
+template <int WF>
+int launch_ws_rows(const void* x, const void* w, const void* scale, void* y,
+                   float* part, int M, int N, int K, long long ldx,
+                   long long ldw, int kslice, int splits, int out_bf16,
+                   cudaStream_t s) {
+  const int rows = M < 64 ? M : 64;
+  if (rows <= 16)
+    return gb::launch_ws<1, WF>(x, w, scale, y, part, M, N, K, ldx, ldw,
+                                kslice, splits, out_bf16, s);
+  if (rows <= 32)
+    return gb::launch_ws<2, WF>(x, w, scale, y, part, M, N, K, ldx, ldw,
+                                kslice, splits, out_bf16, s);
+  return gb::launch_ws<4, WF>(x, w, scale, y, part, M, N, K, ldx, ldw,
+                              kslice, splits, out_bf16, s);
 }
 
 }  // namespace
@@ -585,20 +674,22 @@ int launch_tma(const void* x, const void* w, const void* scale, void* y,
 // Plain C entry points (loaded with ctypes).  Each launches on `stream` and
 // returns cudaGetLastError() (0 on success); int8_gemm_tma_launch returns
 // 10000 + the CUresult when a TMA descriptor cannot be encoded.  x: (M, K)
-// with row stride ldx; w_q: (K, N) int8 with row stride ldw; scale: (N,)
-// f32; y: (M, N) contiguous, bf16 when out_bf16 else f32.
+// with row stride ldx; w_q: (K, N) weight bytes with row stride ldw, int8
+// when w_fp8 is 0, float8 e4m3 when it is 1; scale: (N,) f32; y: (M, N)
+// contiguous, bf16 when out_bf16 else f32.
 
 // f32 x, either dataflow: the FMA kernel.
 extern "C" int int8_gemm_fma_launch(const void* x, const void* w_q,
                                     const void* scale, void* y, int M, int N,
                                     int K, long long ldx, long long ldw,
-                                    int out_bf16, void* stream) {
-  if (M < 1 || N < 1 || K < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + F_BN - 1) / F_BN, (M + F_BM - 1) / F_BM);
-  int8_gemm_f32_kernel<<<grid, F_BN, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int8_t*>(w_q),
-      static_cast<const float*>(scale), y, M, N, K, ldx, ldw, out_bf16);
-  return (int)cudaGetLastError();
+                                    int out_bf16, int w_fp8, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || (w_fp8 & ~1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return w_fp8 ? launch_fma<W_E4M3>(x, w_q, scale, y, M, N, K, ldx, ldw,
+                                    out_bf16, s)
+               : launch_fma<W_INT8>(x, w_q, scale, y, M, N, K, ldx, ldw,
+                                    out_bf16, s);
 }
 
 // Design A (bf16 x): x and w_q 16-byte aligned, ldx % 8 == 0,
@@ -606,10 +697,14 @@ extern "C" int int8_gemm_fma_launch(const void* x, const void* w_q,
 extern "C" int int8_gemm_tma_launch(const void* x, const void* w_q,
                                     const void* scale, void* y, int M, int N,
                                     int K, long long ldx, long long ldw,
-                                    int out_bf16, void* stream) {
-  if (M < 1 || N < 1 || K < 1) return (int)cudaErrorInvalidValue;
-  return launch_tma(x, w_q, scale, y, M, N, K, ldx, ldw, out_bf16,
-                    static_cast<cudaStream_t>(stream));
+                                    int out_bf16, int w_fp8, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || (w_fp8 & ~1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return w_fp8 ? launch_tma<W_E4M3>(x, w_q, scale, y, M, N, K, ldx, ldw,
+                                    out_bf16, s)
+               : launch_tma<W_INT8>(x, w_q, scale, y, M, N, K, ldx, ldw,
+                                    out_bf16, s);
 }
 
 // Design B (bf16 x): `splits` K-slices of `kslice` rows (a multiple of
@@ -619,24 +714,19 @@ extern "C" int int8_gemm_ws_launch(const void* x,
                                    const void* w_q, const void* scale,
                                    void* y, void* part, int M, int N, int K,
                                    long long ldx, long long ldw, int kslice,
-                                   int splits, int out_bf16, void* stream) {
+                                   int splits, int out_bf16, int w_fp8,
+                                   void* stream) {
   if (M < 1 || N < 1 || K < 1 || kslice < 16 || kslice % 16 != 0 ||
       splits < 1 || (long long)(splits - 1) * kslice >= K ||
-      (splits > 1 && part == nullptr))
+      (splits > 1 && part == nullptr) || (w_fp8 & ~1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pf = static_cast<float*>(part);
-  const int rows = M < 64 ? M : 64;
-  int rc;
-  if (rows <= 16)
-    rc = gb::launch_ws<1>(x, w_q, scale, y, pf, M, N, K, ldx, ldw, kslice,
-                          splits, out_bf16, s);
-  else if (rows <= 32)
-    rc = gb::launch_ws<2>(x, w_q, scale, y, pf, M, N, K, ldx, ldw, kslice,
-                          splits, out_bf16, s);
-  else
-    rc = gb::launch_ws<4>(x, w_q, scale, y, pf, M, N, K, ldx, ldw, kslice,
-                          splits, out_bf16, s);
+  const int rc =
+      w_fp8 ? launch_ws_rows<W_E4M3>(x, w_q, scale, y, pf, M, N, K, ldx, ldw,
+                                     kslice, splits, out_bf16, s)
+            : launch_ws_rows<W_INT8>(x, w_q, scale, y, pf, M, N, K, ldx, ldw,
+                                     kslice, splits, out_bf16, s);
   const cudaError_t e = (cudaError_t)rc;
   if (e != cudaSuccess || splits == 1) return (int)e;
   const long long total = (long long)M * N;

@@ -1,8 +1,9 @@
 """W8A16 GEMM: y = (x @ w_q) * scale[None, :], summed in f32 — the
 hand-written Hopper kernels that replace the TPU kernel
 `repro/kernels/int8_gemm.py` (both dataflows: `_kernel_os`, which every
-CiM-gated projection runs, and `_kernel_ws`), beside their plain torch
-version.
+CiM-gated projection runs, and `_kernel_ws`; both weight types it takes:
+int8, and float8 e4m3, the FP8 route of `quant/lowbit.py`), beside their
+plain torch version.
 
 The CUDA source is `csrc/int8_gemm.cu` (its header comment gives the bound
 and the designs).  `kernels/build.py` compiles it with nvcc for sm_90a at
@@ -19,12 +20,17 @@ call from its shapes, strides, alignment and dataflow:
 * "fma" — an f32 FMA kernel for f32 x on either dataflow (off the serving
   path).
 
+Every design takes both weight formats (`WEIGHT_FORMATS`): the kernels
+are templates on the format and differ only in how a weight byte is
+decoded, so `plan_gemm` does not look at it.
+
 `int8_gemm` takes the plain version only for tensors on the CPU; on a
 CUDA tensor it launches the planned kernel or raises.  On "meta" tensors
 (the shape-only trace behind `DecodeCore.route_report`) it returns an
 empty meta tensor of the output shape.  `int8_gemm.launches` counts calls
 that launched (one per GEMM, also when design B adds its reduce pass);
-`int8_gemm.launches_by_design` counts them per design.
+`int8_gemm.launches_by_design` counts them per design and
+`int8_gemm.launches_by_format` per weight format ("int8", "fp8").
 """
 from __future__ import annotations
 
@@ -38,6 +44,8 @@ import torch
 from .build import KernelBuild, build_library
 
 DESIGNS = ("A", "B", "fma")
+# weight dtype -> format name; the kernels' `w_fp8` argument is 1 for "fp8"
+WEIGHT_FORMATS = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
 SMS = 132                        # streaming multiprocessors of an H100 SXM
 A_ROWS = 128                     # design A's rows per tile
 A_COLS = 64                      # design A's columns per tile
@@ -94,11 +102,11 @@ def build() -> KernelBuild:
     kb = build_library("int8_gemm")
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     kb.lib.int8_gemm_fma_launch.argtypes = [vp, vp, vp, vp, i, i, i, ll, ll,
-                                            i, vp]
+                                            i, i, vp]
     kb.lib.int8_gemm_tma_launch.argtypes = [vp, vp, vp, vp, i, i, i, ll, ll,
-                                            i, vp]
+                                            i, i, vp]
     kb.lib.int8_gemm_ws_launch.argtypes = [vp, vp, vp, vp, vp, i, i, i, ll,
-                                           ll, i, i, i, vp]
+                                           ll, i, i, i, i, vp]
     for fn in (kb.lib.int8_gemm_fma_launch, kb.lib.int8_gemm_tma_launch,
                kb.lib.int8_gemm_ws_launch):
         fn.restype = ctypes.c_int
@@ -106,8 +114,8 @@ def build() -> KernelBuild:
 
 
 def int8_gemm_ref(x, w_q, scale, out_dtype=torch.float32):
-    """The plain version: x (M, K) bf16/f32, w_q (K, N) int8, scale (N,)
-    f32 -> y = x @ (w_q * scale) in f32 (the dequantize-first form of
+    """The plain version: x (M, K) bf16/f32, w_q (K, N) int8 or float8
+    e4m3, scale (N,) f32 -> y = x @ (w_q * scale) in f32 (the dequantize-first form of
     `repro/kernels/ref.py:int8_gemm_ref`), cast to `out_dtype`."""
     return (x.float() @ (w_q.float() * scale.float())).to(out_dtype)
 
@@ -123,7 +131,8 @@ def int8_gemm(x, w_q, scale, *, out_dtype=torch.float32,
     the TPU kernel's output, or bfloat16: the f32 result rounded once).
 
     x: (M, K) bfloat16 or float32 with unit column stride; w_q: (K, N)
-    int8 with unit column stride; scale: (N,) float32, contiguous.
+    int8 or float8_e4m3fn with unit column stride (any other weight type
+    raises TypeError); scale: (N,) float32, contiguous.
     `dataflow` is the TPU kernel's: "os" or "ws" (see `plan_gemm`)."""
     if x.ndim != 2 or w_q.ndim != 2 or scale.ndim != 1:
         raise ValueError(f"int8_gemm wants x (M, K), w_q (K, N), scale (N,);"
@@ -134,8 +143,10 @@ def int8_gemm(x, w_q, scale, *, out_dtype=torch.float32,
     if K2 != K or scale.shape[0] != N:
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w_q "
                          f"{tuple(w_q.shape)}, scale {tuple(scale.shape)}")
-    if w_q.dtype != torch.int8:
-        raise TypeError(f"w_q must be int8, got {w_q.dtype}")
+    fmt = WEIGHT_FORMATS.get(w_q.dtype)
+    if fmt is None:
+        raise TypeError(f"w_q must be int8 or float8_e4m3fn, got "
+                        f"{w_q.dtype}")
     if dataflow not in ("os", "ws"):
         raise ValueError(f"unknown dataflow {dataflow!r}")
     dev = x.device
@@ -171,13 +182,14 @@ def int8_gemm(x, w_q, scale, *, out_dtype=torch.float32,
                      dataflow=dataflow, ldx=x.stride(0), ldw=w_q.stride(0),
                      x_align=_alignment(xp), w_align=_alignment(wp))
     out_bf16 = int(out_dtype == torch.bfloat16)
+    w_fp8 = int(fmt == "fp8")
     lib = build().lib
     # the raw handle of the current stream, without a Stream object
     stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
     if plan.design == "A":
         rc = lib.int8_gemm_tma_launch(
             xp, wp, scale.data_ptr(), y.data_ptr(), M, N, K, x.stride(0),
-            w_q.stride(0), out_bf16, stream)
+            w_q.stride(0), out_bf16, w_fp8, stream)
     elif plan.design == "B":
         part = (torch.empty((plan.splits, M, N), dtype=torch.float32,
                             device=dev) if plan.splits > 1 else None)
@@ -185,18 +197,20 @@ def int8_gemm(x, w_q, scale, *, out_dtype=torch.float32,
             xp, wp, scale.data_ptr(),
             y.data_ptr(), None if part is None else part.data_ptr(), M, N,
             K, x.stride(0), w_q.stride(0), plan.kslice, plan.splits,
-            out_bf16, stream)
+            out_bf16, w_fp8, stream)
     else:
         rc = lib.int8_gemm_fma_launch(
             xp, wp, scale.data_ptr(), y.data_ptr(), M, N, K, x.stride(0),
-            w_q.stride(0), out_bf16, stream)
+            w_q.stride(0), out_bf16, w_fp8, stream)
     if rc != 0:
         raise RuntimeError(f"int8_gemm design {plan.design} launch failed: "
                            f"error {rc}")
     int8_gemm.launches += 1
     int8_gemm.launches_by_design[plan.design] += 1
+    int8_gemm.launches_by_format[fmt] += 1
     return y
 
 
 int8_gemm.launches = 0
 int8_gemm.launches_by_design = dict.fromkeys(DESIGNS, 0)
+int8_gemm.launches_by_format = dict.fromkeys(WEIGHT_FORMATS.values(), 0)

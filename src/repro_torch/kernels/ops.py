@@ -38,7 +38,8 @@ def _check_heads(q, k) -> None:
 
 def int8_matmul(x, w_q, w_scale, dataflow: str = "os", block_m: int = 0,
                 block_n: int = 0, block_k: int = 0):
-    """y = x @ dequant(w_q) in f32 (the INT8 GEMM kernels).  The block
+    """y = x @ dequant(w_q) in f32 (the INT8 GEMM kernels; w_q int8 or
+    float8 e4m3, as the JAX wrapper takes either).  The block
     arguments are kept only for parity with the JAX wrapper's signature and
     are unused: the Hopper kernels choose their own tiles and mask ragged
     tails.  dataflow="os" is the output-stationary kernel the model runs

@@ -1,12 +1,16 @@
-"""Times the INT8 GEMM at qwen2-7b's projection shapes, design by design,
-against `torch.matmul` and another checkout's `int8_gemm`.
+"""Times the INT8 GEMM at qwen2-7b's projection shapes, design by design
+and weight format by weight format, against `torch.matmul` and another
+checkout's `int8_gemm`.
 
     python -m repro_torch.launch.gemm_bench [--rows 8,16,32,64,128,129]
-        [--baseline DIR] [--splits 1,2,4,8,16,32] [--out FILE]
+        [--baseline DIR] [--splits 1,2,4,8,16,32] [--weights int8,fp8]
+        [--out FILE]
 
-Needs a CUDA device.  For every M in --rows and every (K, N) of the
-qwen2-7b projections, one child process per checkout times, with f32
-output (the TPU kernel's output, and the only one older wrappers have):
+Needs a CUDA device.  For every M in --rows, every weight format in
+--weights ("int8": random int8 codes; "fp8": float8 e4m3 weights holding
+all 254 finite codes) and every (K, N) of the qwen2-7b projections, one
+child process per checkout times, with f32 output (the TPU kernel's
+output, and the only one older wrappers have):
 
 * "plan"   — `int8_gemm(x, w_q, scale)` as `plan_gemm` dispatches it;
 * "A"      — design A forced (`A_MIN_ROWS` set to 0 in the child);
@@ -15,7 +19,8 @@ output (the TPU kernel's output, and the only one older wrappers have):
 * "matmul" — `torch.matmul` of x on a pre-dequantized bf16 weight;
 * "baseline" — the `int8_gemm(x, w_q, scale)` of the checkout at
   --baseline (its `src/` on PYTHONPATH), run in its own child processes
-  before and after this checkout's (baseline, this, this, baseline).
+  before and after this checkout's (baseline, this, this, baseline);
+  a checkout whose wrapper takes no FP8 weight is timed on int8 only.
 
 Each variant gets two times: "event_ms", CUDA events around back-to-back
 calls (what a caller sees, host launch cost included), and "device_ms",
@@ -99,13 +104,26 @@ def _host_us(torch, fn, n, calls=100):
     return host
 
 
-def child(rows, shapes, tag, splits, out):
+def _weight(torch, fmt, k, n, gen, dev):
+    """A (K, N) weight: int8 codes, or e4m3 bytes over the 254 finite
+    codes."""
+    if fmt == "int8":
+        return torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                             dtype=torch.int8)
+    codes = torch.tensor([c for c in range(256) if c & 0x7F != 0x7F],
+                         dtype=torch.uint8, device=dev)
+    idx = torch.randint(0, codes.numel(), (k, n), generator=gen, device=dev)
+    return codes[idx].view(torch.float8_e4m3fn)
+
+
+def child(rows, shapes, tag, splits, out, weights=("int8",)):
     """Times this process's `repro_torch` (PYTHONPATH) and prints rows."""
     import importlib
     import torch
     from repro_torch.kernels import int8_gemm
     i8 = importlib.import_module("repro_torch.kernels.int8_gemm")
     current = hasattr(i8, "plan_gemm")
+    takes_fp8 = hasattr(i8, "WEIGHT_FORMATS")
     dev = torch.device("cuda")
     with open(out, "a") as f:
         def emit(row):
@@ -113,85 +131,90 @@ def child(rows, shapes, tag, splits, out):
             f.write(json.dumps(row) + "\n")
             f.flush()
 
-        for m in rows:
-            for (k, n) in shapes:
-                gen = torch.Generator(device="cuda").manual_seed(k + n + m)
-                x = torch.randn((m, k), generator=gen, device=dev).to(
-                    torch.bfloat16)
-                q = torch.randint(-127, 128, (k, n), generator=gen,
-                                  device=dev, dtype=torch.int8)
-                s = torch.rand(n, generator=gen, device=dev) * 0.02 + 1e-3
-                copies = min(MAX_COPIES, math.ceil(2 * L2_BYTES / (k * n)))
-                qs = [q] + [q.clone() for _ in range(copies - 1)]
-                want = i8.int8_gemm_ref(x, q, s)
-                ref = want.abs().max().item()
-                base = {"M": m, "K": k, "N": n}
+        for m, fmt, (k, n) in ((m, fmt, kn) for m in rows for fmt in weights
+                               for kn in shapes):
+            if fmt != "int8" and not takes_fp8:
+                continue
+            gen = torch.Generator(device="cuda").manual_seed(k + n + m)
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            q = _weight(torch, fmt, k, n, gen, dev)
+            s = torch.rand(n, generator=gen, device=dev) * 0.02 + 1e-3
+            if fmt == "fp8":
+                s = s / 448
+            copies = min(MAX_COPIES, math.ceil(2 * L2_BYTES / (k * n)))
+            qs = [q] + [q.clone() for _ in range(copies - 1)]
+            want = i8.int8_gemm_ref(x, q, s)
+            ref = want.abs().max().item()
+            base = {"M": m, "K": k, "N": n, "weights": fmt}
 
-                def run(name, fn, host=False, check=True):
-                    err = None
-                    if check:
-                        err = ((fn(0) - want).abs().max().item() / ref)
-                    row = dict(base, variant=name, rel_err=err,
-                               event_ms=_event_ms(torch, fn, copies),
-                               device_ms=_device_ms(torch, fn, copies))
-                    if host:
-                        row["host_us"] = _host_us(torch, fn, copies)
-                    emit(row)
+            def run(name, fn, host=False, check=True):
+                err = None
+                if check:
+                    err = ((fn(0) - want).abs().max().item() / ref)
+                row = dict(base, variant=name, rel_err=err,
+                           event_ms=_event_ms(torch, fn, copies),
+                           device_ms=_device_ms(torch, fn, copies))
+                if host:
+                    row["host_us"] = _host_us(torch, fn, copies)
+                emit(row)
 
-                if not current:
-                    run("baseline", lambda i: int8_gemm(x, qs[i], s),
-                        host=True)
-                else:
-                    plan = i8.plan_gemm(m, n, k)
-                    run("plan", lambda i: int8_gemm(x, qs[i], s), host=True)
-                    keep = i8.A_MIN_ROWS
-                    i8.A_MIN_ROWS = 0
-                    i8.plan_gemm.cache_clear()
-                    run("A", lambda i: int8_gemm(x, qs[i], s))
-                    i8.A_MIN_ROWS = keep
-                    i8.plan_gemm.cache_clear()
-                    bplan = i8.plan_gemm(m, n, k, dataflow="ws")
-                    run("B", lambda i: int8_gemm(x, qs[i], s,
-                                                  dataflow="ws"))
-                    lib = i8.build().lib
-                    y = torch.empty((m, n), device=dev)
-                    for sp in (splits if m > 8 else []):
-                        ksl = 16 * math.ceil(math.ceil(k / 16) / sp)
-                        if math.ceil(k / ksl) != sp or sp == bplan.splits:
-                            continue
-                        part = torch.empty((sp, m, n), device=dev)
-                        stream = torch.cuda.current_stream().cuda_stream
+            if not current:
+                run("baseline", lambda i: int8_gemm(x, qs[i], s),
+                    host=True)
+            else:
+                plan = i8.plan_gemm(m, n, k)
+                run("plan", lambda i: int8_gemm(x, qs[i], s), host=True)
+                keep = i8.A_MIN_ROWS
+                i8.A_MIN_ROWS = 0
+                i8.plan_gemm.cache_clear()
+                run("A", lambda i: int8_gemm(x, qs[i], s))
+                i8.A_MIN_ROWS = keep
+                i8.plan_gemm.cache_clear()
+                bplan = i8.plan_gemm(m, n, k, dataflow="ws")
+                run("B", lambda i: int8_gemm(x, qs[i], s,
+                                              dataflow="ws"))
+                lib = i8.build().lib
+                # the kernels' weight-format argument, where they have one
+                fmt_arg = (int(fmt == "fp8"),) if takes_fp8 else ()
+                y = torch.empty((m, n), device=dev)
+                for sp in (splits if m > 8 else []):
+                    ksl = 16 * math.ceil(math.ceil(k / 16) / sp)
+                    if math.ceil(k / ksl) != sp or sp == bplan.splits:
+                        continue
+                    part = torch.empty((sp, m, n), device=dev)
+                    stream = torch.cuda.current_stream().cuda_stream
 
-                        def forced(i, sp=sp, ksl=ksl, part=part):
-                            rc = lib.int8_gemm_ws_launch(
-                                x.data_ptr(), qs[i].data_ptr(), s.data_ptr(),
-                                y.data_ptr(), part.data_ptr(), m, n, k, k, n,
-                                ksl, sp, 0, stream)
-                            if rc:
-                                raise RuntimeError(f"launch failed: {rc}")
-                            return y
-                        run(f"B/s{sp}", forced, host=True)
-                        del part
-                    wb = (q.to(torch.bfloat16) * s.to(torch.bfloat16))
-                    lcopies = min(MAX_COPIES,
-                                  math.ceil(2 * L2_BYTES / (2 * k * n)))
-                    ws = [wb] + [wb.clone() for _ in range(lcopies - 1)]
-                    row = dict(base, variant="matmul", rel_err=None,
-                               event_ms=_event_ms(
-                                   torch, lambda i: torch.matmul(x, ws[i]),
-                                   lcopies),
-                               device_ms=_device_ms(
-                                   torch, lambda i: torch.matmul(x, ws[i]),
-                                   lcopies),
-                               host_us=_host_us(
-                                   torch, lambda i: torch.matmul(x, ws[i]),
-                                   lcopies))
-                    emit(row)
-                    emit(dict(base, variant="plan-design", rel_err=None,
-                              design=plan.design, b_splits=bplan.splits))
-                    del ws, wb
-                del qs
-                torch.cuda.empty_cache()
+                    def forced(i, sp=sp, ksl=ksl, part=part):
+                        rc = lib.int8_gemm_ws_launch(
+                            x.data_ptr(), qs[i].data_ptr(), s.data_ptr(),
+                            y.data_ptr(), part.data_ptr(), m, n, k, k, n,
+                            ksl, sp, 0, *fmt_arg, stream)
+                        if rc:
+                            raise RuntimeError(f"launch failed: {rc}")
+                        return y
+                    run(f"B/s{sp}", forced, host=True)
+                    del part
+                wb = (q.to(torch.bfloat16) * s.to(torch.bfloat16))
+                lcopies = min(MAX_COPIES,
+                              math.ceil(2 * L2_BYTES / (2 * k * n)))
+                ws = [wb] + [wb.clone() for _ in range(lcopies - 1)]
+                row = dict(base, variant="matmul", rel_err=None,
+                           event_ms=_event_ms(
+                               torch, lambda i: torch.matmul(x, ws[i]),
+                               lcopies),
+                           device_ms=_device_ms(
+                               torch, lambda i: torch.matmul(x, ws[i]),
+                               lcopies),
+                           host_us=_host_us(
+                               torch, lambda i: torch.matmul(x, ws[i]),
+                               lcopies))
+                emit(row)
+                emit(dict(base, variant="plan-design", rel_err=None,
+                          design=plan.design, b_splits=bplan.splits))
+                del ws, wb
+            del qs
+            torch.cuda.empty_cache()
 
 
 def card() -> str:
@@ -209,14 +232,19 @@ def main(argv=None) -> int:
     p.add_argument("--rows", default="8,16,32,64,128,129")
     p.add_argument("--baseline", default=None)
     p.add_argument("--splits", default="1,2,4,8,16,32")
+    p.add_argument("--weights", default="int8",
+                   help="weight formats to time, of int8,fp8")
     p.add_argument("--out", default="runs/gemm_bench.jsonl")
     p.add_argument("--child", default=None, help=argparse.SUPPRESS)
     a = p.parse_args(argv)
     rows = [int(v) for v in a.rows.split(",")]
     splits = [int(v) for v in a.splits.split(",") if v]
+    weights = [v for v in a.weights.split(",") if v]
+    if set(weights) - {"int8", "fp8"}:
+        p.error(f"--weights takes int8 and fp8, got {a.weights}")
     if a.child is not None:
         shapes = [tuple(s) for s in json.loads(os.environ["GEMM_BENCH_SHAPES"])]
-        child(rows, shapes, a.child, splits, a.out)
+        child(rows, shapes, a.child, splits, a.out, weights)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -238,6 +266,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         subprocess.run([sys.executable, os.path.abspath(__file__), "--child",
                         tag, "--rows", a.rows, "--splits", a.splits,
+                        "--weights", a.weights,
                         "--out", os.path.abspath(a.out)],
                        env=env, check=True, cwd=os.path.dirname(src))
         print(f"{tag} ({src}): {time.perf_counter() - t0:.1f} s")
@@ -247,14 +276,17 @@ def main(argv=None) -> int:
 
 
 def report(path, shapes, rows) -> None:
-    """Per-shape table (means over the runs of each tree) and per-step
-    sums per M and variant."""
+    """Per-shape table (means over the runs of each tree, the baseline's
+    variants marked "(baseline)") and per-step sums per M, weight format
+    and variant."""
     acc = {}
     designs = {}
     with open(path) as f:
         for line in f:
             r = json.loads(line)
-            key = (r["M"], r["K"], r["N"], r["variant"])
+            tree = "" if r["tree"] == "this" else f" ({r['tree']})"
+            key = (r["M"], r["K"], r["N"],
+                   f"{r.get('weights', 'int8')} {r['variant']}{tree}")
             if r["variant"] == "plan-design":
                 designs[key[:3]] = (r["design"], r["b_splits"])
                 continue
@@ -267,7 +299,8 @@ def report(path, shapes, rows) -> None:
         print(f"M={m} K={k} N={n} {v}: event {ev!r} ms, device {dv!r} ms"
               + (f", host {sum(host) / len(host)!r} us/call" if host else "")
               + (f", max rel err {max(err)!r}" if err else "")
-              + (f" [plan {designs.get((m, k, n))}]" if v == "plan" else ""))
+              + (f" [plan {designs.get((m, k, n))}]"
+                 if " plan" in v else ""))
     for m in rows:
         for v in sorted({key[3] for key in acc if key[0] == m}):
             if not all((m, k, n, v) in acc for (k, n) in shapes):

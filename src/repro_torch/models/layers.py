@@ -6,8 +6,9 @@ leaf has the same path in both packages.
 `linear` is the single projection execution layer: every dense projection
 routes through it with a GEMM label, and a `KernelPlanTable`
 (repro_torch.quant.plan_table) decides per label whether a quantized
-projection runs the hand-written INT8 GEMM kernel or the plain torch
-matmul — the What/When/Where verdicts applied as the deployed dataflow.
+projection (INT8, INT4 or FP8) runs the hand-written INT8 GEMM kernel or
+the plain torch matmul — the What/When/Where verdicts applied as the
+deployed dataflow.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from ..quant.int8 import dequant_contract, planned_linear
+from ..quant.lowbit import (dequant_contract_fp8, dequant_contract_int4,
+                            planned_linear_fp8, planned_linear_int4)
 
 
 def dtype_of(name: str):
@@ -38,6 +41,10 @@ _ROUTE_TRACE = threading.local()    # .records, per-thread: concurrent
 # kernel here, not Pallas)
 CIM_ROUTE = "cim-int8-pallas"
 DEQUANT_ROUTE = "int8-dequant-xla"
+CIM_INT4_ROUTE = "cim-int4-pallas"
+DEQUANT_INT4_ROUTE = "int4-dequant-xla"
+CIM_FP8_ROUTE = "cim-fp8-pallas"
+DEQUANT_FP8_ROUTE = "fp8-dequant-xla"
 FLOAT_ROUTE = "xla"
 
 
@@ -69,20 +76,31 @@ def _record_route(label: str, route: str) -> None:
 def linear(w, x, label: str, plan=None):
     """y = x @ w — THE projection entry point, routed by the kernel plan.
 
-    w is either a float weight tensor or a quantized {"q", "scale"} leaf
-    (repro_torch.quant.quantize_model_params).  With a KernelPlanTable
-    `plan`, a quantized 2-D projection whose label gates on runs the INT8
-    GEMM kernel (planned_linear); every other quantized projection
-    contracts against the raw int8 weight in x.dtype with the scale in
-    the epilogue.  Unknown labels raise KeyError from the plan table:
-    model-side label drift must not silently disable gating."""
+    w is either a float weight tensor or a quantized leaf: {"q", "scale"}
+    INT8, {"q4", "scale"} packed INT4 or {"qf8", "scale"} FP8
+    (repro_torch.quant.quantize_model_params_lowbit); the key present is
+    the format.  With a KernelPlanTable `plan`, a quantized 2-D
+    projection whose label gates on runs the INT8 GEMM kernel
+    (planned_linear, planned_linear_int4, planned_linear_fp8); every
+    other quantized projection contracts against the raw weight in
+    x.dtype with the scale in the epilogue.  Unknown labels raise
+    KeyError from the plan table: model-side label drift must not
+    silently disable gating."""
     quantized = isinstance(w, dict)
     use_cim = bool(plan is not None and quantized and plan.use_cim(label))
     if quantized:
-        if "q4" in w or "qf8" in w:
-            raise NotImplementedError(
-                "INT4 ('q4') and FP8 ('qf8') weights are not ported yet "
-                "(ROADMAP.md, port slice 3: quant/lowbit.py)")
+        if "q4" in w:
+            if use_cim and w["q4"].ndim == 2:
+                _record_route(label, CIM_INT4_ROUTE)
+                return planned_linear_int4(x, w["q4"], w["scale"])
+            _record_route(label, DEQUANT_INT4_ROUTE)
+            return dequant_contract_int4(x, w["q4"], w["scale"])
+        if "qf8" in w:
+            if use_cim and w["qf8"].ndim == 2:
+                _record_route(label, CIM_FP8_ROUTE)
+                return planned_linear_fp8(x, w["qf8"], w["scale"])
+            _record_route(label, DEQUANT_FP8_ROUTE)
+            return dequant_contract_fp8(x, w["qf8"], w["scale"])
         if use_cim and w["q"].ndim == 2:
             _record_route(label, CIM_ROUTE)
             return planned_linear(x, w["q"], w["scale"], use_cim_path=True)

@@ -16,10 +16,13 @@ Entry points:
 
 Unlike the JAX package, which returns a new cache, `decode_step` writes
 the new token's K/V into `cache` in place and returns the same object.
+With `RunConfig(kv_cache_dtype="int8")` the cache holds int8 codes with a
+bf16 scale per (position, kv head), as in the JAX package.
 
 Not ported yet: the other families (moe, ssm, hybrid, vlm, audio),
-`kv_cache_dtype="int8"`, ragged per-slot positions and the paged cache
-(`block_tables`); they raise NotImplementedError.
+ragged per-slot positions and the paged cache (`block_tables`), with the
+int8 KV cache on it; they raise NotImplementedError naming their
+ROADMAP.md queue-1 item ('The other families', 'Batched serving').
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ def _check_family(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (only 'dense'); see "
-            f"ROADMAP.md, the port's later slices")
+            f"ROADMAP.md, queue 1, 'The other families'")
 
 
 def period_slots(cfg: ModelConfig) -> list[Slot]:
@@ -106,15 +109,38 @@ def init(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
 def init_cache(cfg: ModelConfig, rc: RunConfig, batch: int, max_len: int,
                device="cuda"):
     """KV cache: one {"k", "v"} entry per slot, each (periods, batch,
-    max_len, kv_heads, head_dim) in rc.kv_cache_dtype."""
-    if rc.kv_cache_dtype == "int8":
-        raise NotImplementedError("int8 KV cache is not ported yet "
-                                  "(ROADMAP.md, port slice 3)")
-    dtype = dtype_of(rc.kv_cache_dtype)
+    max_len, kv_heads, head_dim) in rc.kv_cache_dtype.  An "int8" cache
+    holds int8 codes and adds bf16 "k_scale" / "v_scale" leaves of shape
+    (periods, batch, max_len, kv_heads)."""
+    int8 = rc.kv_cache_dtype == "int8"
+    dtype = torch.int8 if int8 else dtype_of(rc.kv_cache_dtype)
     shape = (n_periods(cfg), batch, max_len, cfg.n_kv_heads, cfg.head_dim())
-    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
+    caches = []
+    for _ in period_slots(cfg):
+        c = {"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for _ in period_slots(cfg)]
+        if int8:
+            for key in ("k_scale", "v_scale"):
+                c[key] = torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                     device=device)
+        caches.append(c)
+    return caches
+
+
+def _quantize_kv(t):
+    """(..., head_dim) -> (int8 codes, bf16 scale (...,)): per-row max-abs
+    / 127.  Every step runs in t's dtype, as in the JAX package.  At a
+    row's max element t / scale can round to 128; XLA's float -> int8
+    convert saturates that to 127, torch's `.to(torch.int8)` would wrap it
+    to -128, so the codes are clamped before the cast."""
+    scale = t.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-8
+    q = torch.round(t / scale).clamp(-128, 127).to(torch.int8)
+    return q, scale[..., 0].to(torch.bfloat16)
+
+
+def _dequantize_kv(q, scale):
+    """int8 codes and their bf16 row scales -> bf16 K or V."""
+    return q.to(torch.bfloat16) * scale[..., None]
 
 
 # --- forward (prefill) and decode --------------------------------------------
@@ -148,7 +174,8 @@ def forward(params, tokens, cfg: ModelConfig, rc: RunConfig,
     _check_family(cfg)
     if image_embeds is not None:
         raise NotImplementedError("cross attention (vlm image_embeds) is not "
-                                  "ported yet (ROADMAP.md)")
+                                  "ported yet (ROADMAP.md, queue 1, 'The "
+                                  "other families')")
     b, l = tokens.shape
     x = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
     nh, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
@@ -176,19 +203,21 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
     int (or 0-d tensor) shared by the batch.  Writes this token's K/V at
     `pos` into `cache` in place and returns (logits (b, 1, vocab), cache).
     `plan` is the KernelPlanTable: gated projection labels run the INT8
-    GEMM kernel."""
+    GEMM kernel.  With rc.kv_cache_dtype "int8" the new K/V are
+    quantized per (position, kv head), written with their scales, and
+    attention reads the dequantized cache, as in the JAX package."""
     _check_family(cfg)
     if active is not None or block_tables is not None:
-        raise NotImplementedError("the paged, slot-masked decode path is "
-                                  "not ported yet (ROADMAP.md)")
-    if rc.kv_cache_dtype == "int8":
-        raise NotImplementedError("int8 KV cache is not ported yet "
-                                  "(ROADMAP.md, port slice 3)")
+        raise NotImplementedError(
+            "the paged, slot-masked decode path (and the int8 KV cache on "
+            "it) is not ported yet (ROADMAP.md, queue 1, 'Batched serving')")
     if torch.is_tensor(pos):
         if pos.ndim != 0:
-            raise NotImplementedError("ragged per-slot positions need the "
-                                      "paged cache, not ported yet")
+            raise NotImplementedError(
+                "ragged per-slot positions need the paged cache, not ported "
+                "yet (ROADMAP.md, queue 1, 'Batched serving')")
         pos = int(pos)
+    int8_kv = rc.kv_cache_dtype == "int8"
     b = tokens.shape[0]
     x = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
     nh, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
@@ -202,9 +231,17 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
         q = apply_rope(q, pvec, cfg.rope_theta)
         k = apply_rope(k, pvec, cfg.rope_theta)
         ck, cv = slot_cache["k"][i], slot_cache["v"][i]
-        ck[:, pos] = k[:, 0].to(ck.dtype)
-        cv[:, pos] = v[:, 0].to(cv.dtype)
-        o = decode_attend(q, ck, cv, lens, window=cfg.sliding_window,
+        if int8_kv:
+            cks, cvs = slot_cache["k_scale"][i], slot_cache["v_scale"][i]
+            (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+            ck[:, pos], cks[:, pos] = kq[:, 0], ks[:, 0]
+            cv[:, pos], cvs[:, pos] = vq[:, 0], vs[:, 0]
+            kd, vd = _dequantize_kv(ck, cks), _dequantize_kv(cv, cvs)
+        else:
+            ck[:, pos] = k[:, 0].to(ck.dtype)
+            cv[:, pos] = v[:, 0].to(cv.dtype)
+            kd, vd = ck, cv
+        o = decode_attend(q, kd, vd, lens, window=cfg.sliding_window,
                           grouped=rc.gqa_einsum)
         x = x + attn_out_proj(sp["attn"], o.reshape(b, 1, nh * dh), plan)
         h = rmsnorm(sp["norm2"], x, cfg.rmsnorm_eps)

@@ -2,8 +2,9 @@
 
 `DecodeCore` owns everything that is fixed before the first request and
 never changes while requests stream through: the model/run configs, the
-(optionally INT8-quantized) parameters on one device, and the
-What/When/Where verdicts as a static `KernelPlanTable` per serving phase.
+(optionally INT8-, INT4- or FP8-quantized) parameters on one device, and
+the What/When/Where verdicts as a static `KernelPlanTable` per serving
+phase.
 `ServeSession` (repro_torch.serving.engine) is a thin mutable shell over
 one core.
 
@@ -30,8 +31,8 @@ from ..core.planner import plan_workload_by_phase
 from ..core.sweep import default_engine, measured_cache_delta
 from ..models import decode_step, init_cache
 from ..models.layers import route_trace
-from ..quant import (KernelPlanTable, quantize_model_params,
-                     strip_model_prefix)
+from ..quant import (PRECISIONS, KernelPlanTable,
+                     quantize_model_params_lowbit, strip_model_prefix)
 
 
 def sample_token(cfg: ModelConfig, logits, temperature: float,
@@ -76,10 +77,13 @@ class DecodeCore:
     """Frozen core: params + plan tables on one device.
 
     quantize=True turns the planner verdicts into the execution policy:
-    projection weights are INT8-quantized at construction and the kernel
-    plan is built eagerly; gated labels then run the INT8 GEMM kernel.
-    gated=False keeps the quantized weights but forces every label onto
-    the standard path — the parity baseline for the gated program.
+    the kernel plan is built eagerly, then projection weights are
+    quantized at `precision` ("int8", "int4" or "fp8": the runtime What
+    axis, `quant.quantize_model_params_lowbit`); gated labels then run
+    the INT8 GEMM kernel (INT4 unpacked to int8 first, FP8 as an e4m3
+    operand).  gated=False keeps the quantized weights but forces every
+    label onto the standard path — the parity baseline for the gated
+    program.  An unknown precision raises ValueError.
 
     `device` defaults to "cuda"; the params must already live there (a
     CPU run passes device="cpu" explicitly)."""
@@ -88,7 +92,7 @@ class DecodeCore:
     params: Any
     quantize: bool = False
     gated: bool = True
-    # weight precision of the quantized path; only "int8" is ported
+    # weight precision of the quantized path: "int8" | "int4" | "fp8"
     precision: str = "int8"
     # decode shape the planner reasons about (ServeSession passes its own)
     plan_batch: int = 8
@@ -96,10 +100,9 @@ class DecodeCore:
     device: Any = "cuda"
 
     def __post_init__(self):
-        if self.precision != "int8":
-            raise NotImplementedError(
-                f"precision {self.precision!r} is not ported yet (ROADMAP.md,"
-                f" port slice 3: quant/lowbit.py); use 'int8'")
+        if self.quantize and self.precision not in PRECISIONS:
+            raise ValueError(f"unknown precision {self.precision!r} "
+                             "(expected int8/int4/fp8)")
         self.device = torch.device(self.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("DecodeCore runs on 'cuda' by default and this "
@@ -131,7 +134,8 @@ class DecodeCore:
                           if is_projection_label(lab)]
             self.prefill_plan_table = (pgate if proj_flips
                                        else self.plan_table)
-            self.params = quantize_model_params(self.params)
+            self.params = quantize_model_params_lowbit(self.params,
+                                                       self.precision)
 
     # --- planner plumbing ----------------------------------------------
 

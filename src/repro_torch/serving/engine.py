@@ -48,7 +48,9 @@ def make_prefill(cfg: ModelConfig, rc: RunConfig,
 
 
 def cim_fraction(routes: dict) -> float:
-    """Fraction of traced projection routes that run the CiM INT8 path."""
+    """Fraction of traced projection routes that run the CiM INT8 path
+    (`cim-int8-pallas` only, as the JAX package counts it: the INT4 and
+    FP8 kernel routes are not counted)."""
     vals = [r["route"] if isinstance(r, dict) else r
             for r in routes.values()]
     return sum(v == CIM_ROUTE for v in vals) / max(1, len(vals))
@@ -61,8 +63,9 @@ class ServeSession:
     position over one contiguous KV cache.
 
     quantize=True turns the planner verdicts into the execution policy
-    (see DecodeCore); gated=False keeps the quantized weights but forces
-    every label onto the standard path.  `device` defaults to "cuda"."""
+    (see DecodeCore) at weight `precision` ("int8", "int4" or "fp8");
+    gated=False keeps the quantized weights but forces every label onto
+    the standard path.  `device` defaults to "cuda"."""
     cfg: ModelConfig
     rc: RunConfig
     params: Any

@@ -6,7 +6,9 @@ CUDA device; on a machine with an H100 run them with
 
 Tolerances: the INT8 GEMM kernel and its plain version sum the same f32
 products (bf16 x times an int8 weight is exact in f32) in different
-orders, so max|Δ| ≤ 1e-4 · max|ref|.  The sweep kernel repeats its plain
+orders, so max|Δ| ≤ 1e-4 · max|ref|.  The same holds for its float8 e4m3
+weight operand, which every design decodes exactly (e4m3 -> bf16 is
+exact); those weights hold all 254 finite e4m3 codes.  The sweep kernel repeats its plain
 version operation for operation, so it is held bit for bit (NaN
 positions included), and so are the planner's verdicts and the campaign
 front it feeds, against the golden CSVs.
@@ -78,6 +80,20 @@ def _inputs(m, k, n, dtype, device, seed=0):
     return x.to(device), q.to(device), s.to(device)
 
 
+def _fp8_inputs(m, k, n, dtype, device, seed=0):
+    """x, an e4m3 weight whose first 254 elements are the 254 finite
+    codes in order (the rest drawn from them), and a scale."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((m, k), generator=gen).to(dtype)
+    codes = torch.tensor([c for c in range(256) if c & 0x7F != 0x7F],
+                         dtype=torch.uint8)
+    idx = torch.randint(0, codes.numel(), (k * n,), generator=gen)
+    idx[:min(k * n, codes.numel())] = torch.arange(min(k * n, codes.numel()))
+    q = codes[idx].reshape(k, n).view(torch.float8_e4m3fn)
+    s = torch.rand(n, generator=gen) * 0.02 / 448 + 1e-5
+    return x.to(device), q.to(device), s.to(device)
+
+
 def _check(x, q, s, dataflow="os", design=None):
     """Kernel vs plain version within TOL·max|ref|; `design` is the one
     int8_gemm.launches_by_design must show for the call."""
@@ -114,6 +130,58 @@ def test_kernel_matches_plain_full_width(cuda, kn, m, dataflow):
     M."""
     design = "A" if dataflow == "os" and m > I8.A_MIN_ROWS else "B"
     _check(*_inputs(m, *kn, torch.bfloat16, cuda, seed=m), dataflow, design)
+
+
+FP8_DESIGNS = [(300, 512, 256, torch.bfloat16, "os", "A"),
+               (8, 512, 256, torch.bfloat16, "os", "B"),
+               (300, 512, 256, torch.bfloat16, "ws", "B"),
+               (8, 512, 256, torch.float32, "os", "fma"),
+               (8, 512, 256, torch.float32, "ws", "fma")]
+
+
+@pytest.mark.parametrize("case", FP8_DESIGNS,
+                         ids=lambda c: "-".join(map(str, c[:3] + c[4:])))
+def test_fp8_weight_all_codes_each_design(cuda, case):
+    """The e4m3 operand in designs A, B and fma, on a weight holding all
+    254 finite codes, in f32 and bf16 output, with its launch counted
+    under "fp8"."""
+    m, k, n, dtype, dataflow, design = case
+    x, q, s = _fp8_inputs(m, k, n, dtype, cuda, seed=m + k)
+    assert q.view(torch.uint8).unique().numel() == 254
+    before = dict(int8_gemm.launches_by_format)
+    y32 = _check(x, q, s, dataflow, design)
+    assert int8_gemm.launches_by_format["fp8"] == before["fp8"] + 1
+    assert int8_gemm.launches_by_format["int8"] == before["int8"]
+    y16 = int8_gemm(x, q, s, out_dtype=torch.bfloat16, dataflow=dataflow)
+    torch.cuda.synchronize()
+    assert torch.equal(y16, y32.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dataflow", ["os", "ws"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mkn", RAGGED, ids=lambda t: "x".join(map(str, t)))
+def test_fp8_weight_matches_plain_ragged(cuda, mkn, dtype, dataflow):
+    design = "fma" if dtype == torch.float32 else "B"
+    _check(*_fp8_inputs(*mkn, dtype, cuda), dataflow, design)
+
+
+@pytest.mark.parametrize("m", [8, 2048])
+@pytest.mark.parametrize("kn", FULL_WIDTH, ids=lambda t: "x".join(map(str, t)))
+def test_fp8_weight_matches_plain_full_width(cuda, kn, m):
+    """qwen2-7b's projections at the serve's M = 8 (design B) and the
+    prefill's M = 2048 (design A), and design B's ws dataflow at M = 8."""
+    x, q, s = _fp8_inputs(m, *kn, torch.bfloat16, cuda, seed=m)
+    _check(x, q, s, "os", "A" if m > I8.A_MIN_ROWS else "B")
+    if m == 8:
+        _check(x, q, s, "ws", "B")
+
+
+def test_fp8_weight_rejects_other_float8(cuda):
+    x, q, s = _fp8_inputs(8, 256, 128, torch.bfloat16, cuda)
+    with pytest.raises(TypeError):
+        int8_gemm(x, q.float().to(torch.float8_e5m2), s)
+    with pytest.raises(TypeError):
+        int8_gemm(x, q.half(), s)
 
 
 def test_kernel_strided_x(cuda):

@@ -154,7 +154,4 @@ def test_unported_paths_raise():
         decode_step(tp, cache, tok, 0, tcfg, trc,
                     block_tables=torch.zeros((2, 1), dtype=torch.long))
     with pytest.raises(NotImplementedError):
-        init_cache(tcfg, dataclasses.replace(trc, kv_cache_dtype="int8"), 2,
-                   4, device="cpu")
-    with pytest.raises(NotImplementedError):
         init(torch.Generator(), reduced(ARCHS["mamba2-780m"]), device="cpu")
