@@ -7,7 +7,10 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 It drives the port's main paths on the card: the planner-gated serving of
 qwen2-7b at full width (28 layers, random weights from a seed) with INT8,
-FP8 and INT4 weights and with the int8 KV cache, its prefill forward (one
+FP8 and INT4 weights and with the int8 KV cache, each step a replayed
+CUDA graph, its continuous batching (32 ragged requests through the
+paged, slot-masked engine, also adaptive and with the int8 KV pool) and
+its serving CLI, its prefill forward (one
 2048-token prompt through the flash-attention kernel) with INT8 and FP8
 weights, and the batched What/When/Where sweep with its design-space
 campaigns.  In order it:
@@ -106,17 +109,46 @@ campaigns.  In order it:
 15. serves at `precision="int4"` as phase 13 (`cim-int4-pallas`; the
    nibbles are unpacked to int8 before the kernel, so all launches are
    on an int8 weight);
-16. prints one JSON line of kernel numbers, the card line, and last
+16. runs the continuous-batching engine (`ContinuousBatchingEngine`,
+   INT8 weights from seed 0, gated; 8 slots, block size 16, max_len 65,
+   40 KV blocks) on 32 `synthetic_requests(seed=0, prompt_len=(8, 32),
+   new_tokens=(8, 32))`: (a) all at once — every request completes with
+   its max_new_tokens, int8_gemm launched exactly (steps + captures) x
+   197 times, all on design B, `batch_decode_executables` equal to the
+   phase plans served, one replayed engine step bit for bit against the
+   eager `decode_step(..., active=, block_tables=)` on a clone of the
+   pools, and eight requests on phase 9's prompt against `ServeSession`
+   (first-step logits within LOGIT_TOL·max|ref|, greedy first tokens on
+   at least MIN_TOKEN_AGREEMENT lanes); (b) Poisson arrivals at 4 req/s
+   (TTFT, queue wait, tokens/s, occupancy, the step breakdown, peak
+   memory) and a traced window's device busy and idle share; (c) the
+   int8 KV pool (first tokens against the bf16-KV engine on at least
+   24 of 32); (d) adaptive, `PlanService(backend="pallas")` over
+   `BucketLattice.for_engine(8, 65)`: sweep_eval launched, and the
+   streams equal the frozen engine's when no bucket gates a projection
+   otherwise, else one capture per live plan variant;
+17. runs `python -m repro_torch.launch.serve --arch qwen2-7b --smoke
+   --requests 8 --quantize` as a subprocess: exit 0 and a JSON report;
+18. prints one JSON line of kernel numbers, the card line, and last
    `{"ok": true, "device": {...}}`.
 
+Phase 9 also holds the graphs: the serve's steps replay CUDA graphs
+captured once (`decode_executables == prefill_executables == 1`), their
+streams equal the eager `make_serve_step`'s, both steps bit for bit
+against it on a clone of the cache, with ms/step, tokens/s and peak
+memory of both, the graph pools' memory, and traced graphed and eager
+steps; phases 12, 13 and 15 replay graphs too (replays credit the
+launch counts).
+
 Each kernel's launch count in that line comes from its own main path
-(the default-grid campaign for sweep_eval; for int8_gemm, which has
-seven entries, each with its design and weight format: the gated INT8
-serve, the INT8 prefill forward, the 197 calls of one decode step
-through `ops.int8_matmul(dataflow="ws")`, the same three with FP8
-weights, and the gated INT4 serve; the prefill forward for
-flash_attention; one call of the public wrapper for decode_attention),
-counted from 0 just before that path ran.
+(for sweep_eval, which has two entries: the default-grid campaign and
+the adaptive engine run; for int8_gemm, which has eight entries, each
+with its design and weight format: the gated INT8 serve, the INT8
+prefill forward, the 197 calls of one decode step through
+`ops.int8_matmul(dataflow="ws")`, the same three with FP8 weights, the
+gated INT4 serve, and the continuous engine's all-at-once run; the
+prefill forward for flash_attention; one call of the public wrapper for
+decode_attention), counted from 0 just before that path ran.
 
 Any failed phase raises and exits non-zero; so does a machine with no
 CUDA device or a directory without the port.
@@ -169,6 +201,11 @@ FLASH_CASES = [(1, PREFILL, PREFILL, 28, 4, 128, 0),
 DECODE_CASES = [(BATCH, DECODE_S, 28, 4, 128), (3, 4096, 28, 4, 128),
                 (2, 300, 8, 1, 64)]
 ATTN_DTYPES = ("bfloat16", "float32")
+# continuous batching (phase 16): slots, block size, length cap, KV blocks
+# (full provisioning: 8 x ceil(65 / 16)), requests, Poisson rate, and the
+# requests of the traced window
+CB_SLOTS, CB_BLOCK, CB_MAX_LEN, CB_BLOCKS = 8, 16, 65, 40
+CB_REQUESTS, CB_RATE, CB_TRACED = 32, 4.0, 12
 FRONTIER = os.path.join(HERE, "results", "campaign", "frontier.csv")
 
 
@@ -529,7 +566,12 @@ def main() -> int:
     from repro_torch.models import forward, init, n_periods, route_trace
     from repro_torch.models.layers import (CIM_FP8_ROUTE, CIM_INT4_ROUTE,
                                            CIM_ROUTE)
-    from repro_torch.serving import DecodeCore, ServeSession, make_prefill
+    from repro_torch.core import BucketLattice, PlanService
+    from repro_torch.models import clone_cache, decode_step
+    from repro_torch.serving import (ContinuousBatchingEngine, DecodeCore,
+                                     Request, ServeSession, make_prefill,
+                                     make_serve_step, poisson_arrivals,
+                                     sample_token, synthetic_requests)
     i8_mod = importlib.import_module("repro_torch.kernels.int8_gemm")
     sw_mod = importlib.import_module("repro_torch.kernels.sweep_eval")
     fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
@@ -1079,9 +1121,13 @@ def main() -> int:
     prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT),
                            generator=torch.Generator().manual_seed(1)
                            ).to("cuda")
-    gated.generate(prompt[:, :2], 1)               # warm-up, then start over
+    torch.cuda.synchronize()
+    mem0 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    gated.generate(prompt[:, :2], 1)      # warm-up and capture, start over
     gated.reset()
     torch.cuda.synchronize()
+    graph_alloc = torch.cuda.memory_allocated() - mem0[0]
+    graph_reserved = torch.cuda.memory_reserved() - mem0[1]
     torch.cuda.reset_peak_memory_stats()
     reset_counts(int8_gemm)
     t0 = time.perf_counter()
@@ -1164,6 +1210,106 @@ def main() -> int:
                   f"({us / 1e3 / prof['busy_ms']:.1%}): {name[:90]}")
 
     trace_steps(gated, "gated")
+
+    # --- 9b. the graphed step against the eager step ------------------------
+    def eager_generate(sess, toks, n_new):
+        """ServeSession.generate on the eager step (`make_serve_step`, the
+        function the core captures), on the session's own cache."""
+        pre = make_serve_step(cfg, sess.rc, sess.prefill_plan_table)
+        dec = make_serve_step(cfg, sess.rc, sess.plan_table)
+        sess.reset()
+        with torch.inference_mode():
+            for t in range(toks.shape[1]):
+                logits, sess.cache = pre(sess.params, sess.cache,
+                                         toks[:, t:t + 1], sess.pos)
+                sess.pos += 1
+            out, tok = [], sample_token(cfg, logits, 0.0)
+            for _ in range(n_new):
+                out.append(tok)
+                logits, sess.cache = dec(sess.params, sess.cache, tok,
+                                         sess.pos)
+                sess.pos += 1
+                tok = sample_token(cfg, logits, 0.0)
+        return torch.cat(out, dim=1) if out else None
+
+    eager_generate(gated, prompt[:, :2], 1)        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(int8_gemm)
+    t0 = time.perf_counter()
+    eager_tokens = eager_generate(gated, prompt, NEW)
+    torch.cuda.synchronize()
+    t_eager = time.perf_counter() - t0
+    eager_launches = dict(int8_gemm.launches_by_design)
+    eager_peak = torch.cuda.max_memory_allocated()
+    gated.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = gated.generate(prompt, NEW)
+    torch.cuda.synchronize()
+    t_graph2 = time.perf_counter() - t0
+    eager_step_ms = 1e3 * t_eager / steps
+    graph_step_ms = 1e3 * min(elapsed, t_graph2) / steps
+    print(f"serve gated, graphed vs eager on the same weights ({steps} steps "
+          f"at batch {BATCH}): graphed {step_ms!r} and "
+          f"{1e3 * t_graph2 / steps!r} ms/step "
+          f"({BATCH * NEW / elapsed!r}, {BATCH * NEW / t_graph2!r} new "
+          f"tokens/s), eager make_serve_step {eager_step_ms!r} ms/step "
+          f"({BATCH * NEW / t_eager!r} new tokens/s): "
+          f"{eager_step_ms / graph_step_ms:.2f}x; eager launches by design "
+          f"{eager_launches}; peak memory graphed {peak / 2**30!r} GiB, "
+          f"eager {eager_peak / 2**30!r} GiB; the captures (graph pools "
+          f"and static buffers) hold {graph_alloc / 2**20!r} MiB allocated, "
+          f"{graph_reserved / 2**20!r} MiB reserved [{card}]")
+    if not (torch.equal(eager_tokens, tokens) and torch.equal(again, tokens)):
+        raise RuntimeError("the graphed serve's greedy streams differ from "
+                           "the eager step's")
+    if eager_launches["B"] != expected:
+        raise RuntimeError(f"the eager serve launched {eager_launches}")
+    if peak > eager_peak + max(graph_alloc, 0):
+        raise RuntimeError("the graphed serve's peak memory exceeds the "
+                           "eager serve's by more than the graph pools")
+
+    def graphed_vs_eager(sess, n_fill):
+        """Both steps of a session, graphed, against the eager function on
+        a clone of the cache: logits and caches bit for bit."""
+        sess.reset()
+        sess.prefill(prompt[:, :n_fill])
+        results = []
+        for name, fn, table in (("prefill", sess.core.prefill_step,
+                                 sess.prefill_plan_table),
+                                ("decode", sess.core.step, sess.plan_table)):
+            copy = clone_cache(sess.cache)
+            tok = prompt[:, n_fill:n_fill + 1]
+            got, _ = fn(sess.cache, tok, sess.pos)
+            with torch.inference_mode():
+                want, copy = make_serve_step(cfg, sess.rc, table)(
+                    sess.params, copy, tok, sess.pos)
+            same = torch.equal(got, want) and all(
+                torch.equal(sess.cache[0][k], copy[0][k]) for k in copy[0])
+            results.append((name, same))
+        sess.reset()
+        return results
+
+    bitwise = graphed_vs_eager(gated, 5)
+    print(f"graphed steps vs the eager function on a clone of the cache "
+          f"(logits and cache bit for bit): {bitwise}; decode_executables "
+          f"{gated.decode_executables}, prefill_executables "
+          f"{gated.prefill_executables} (prefill table "
+          f"{'==' if gated.prefill_plan_table == gated.plan_table else '!='}"
+          f" decode table)")
+    if not all(same for _, same in bitwise) or (
+            gated.decode_executables, gated.prefill_executables) != (1, 1):
+        raise RuntimeError("the graphed step is not the eager step, or was "
+                           "captured more than once")
+    eager_prof = profile_window(torch, lambda: eager_generate(
+        gated, prompt[:, :4], 0))
+    gated.reset()
+    if eager_prof["busy_ms"] > 0:
+        print(f"traced eager steps (4, profiler on): wall "
+              f"{eager_prof['wall_ms'] / 4!r} ms/step, device busy "
+              f"{eager_prof['busy_ms'] / 4!r} ms/step, device idle share "
+              f"{1 - eager_prof['busy_ms'] / eager_prof['wall_ms']!r}")
 
     # --- 10. the prefill forward at full width ------------------------------
     prc = RunConfig(attn_impl="pallas")
@@ -1478,7 +1624,279 @@ def main() -> int:
     del int4_sess
     torch.cuda.empty_cache()
 
-    # --- 16. result lines ----------------------------------------------------
+    # --- 16. continuous batching at full width ------------------------------
+    t0 = time.perf_counter()
+    params = init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                  device="cuda")
+    cb_core = DecodeCore(cfg, rc, params, quantize=True, plan_batch=CB_SLOTS,
+                         plan_max_len=CB_MAX_LEN, device="cuda")
+    del params
+    torch.cuda.empty_cache()
+    print(f"continuous batching: {ARCH} full width, INT8 weights from seed "
+          f"0, gated; {CB_SLOTS} slots, block size {CB_BLOCK}, max_len "
+          f"{CB_MAX_LEN}, {CB_BLOCKS} KV blocks (full provisioning); init + "
+          f"plan + quantize {time.perf_counter() - t0:.2f} s; decode plan "
+          f"{cb_core.plan_table.digest}, prefill plan "
+          f"{cb_core.prefill_plan_table.digest}")
+
+    def cb_requests():
+        return synthetic_requests(cfg, CB_REQUESTS, seed=0,
+                                  prompt_len=(8, 32), new_tokens=(8, 32))
+
+    def cb_engine(core, **kw):
+        """An engine at the phase's settings, warmed by two short requests
+        (prefill-phase and decode-phase steps: both graphs captured)."""
+        eng = ContinuousBatchingEngine(core, n_slots=CB_SLOTS,
+                                       max_len=CB_MAX_LEN,
+                                       block_size=CB_BLOCK,
+                                       n_kv_blocks=CB_BLOCKS, **kw)
+        if kw.get("plan_service") is None:
+            eng.run(synthetic_requests(cfg, 2, seed=1, prompt_len=(2, 2),
+                                       new_tokens=(2, 2)), None)
+        return eng
+
+    def cb_run(eng, reqs, arrivals, what):
+        """Run `reqs` to completion; print and return this run's numbers
+        (from its own requests and the engine's counters' deltas)."""
+        done0 = len(eng.completed)
+        before = (eng.steps, eng.dispatch_s, eng.host_fetch_s,
+                  eng.telemetry_s, len(eng.occupancy_samples))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng.run(reqs, arrivals)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        done = eng.completed[done0:]
+        n_steps = eng.steps - before[0]
+        ttft = [r.t_first - r.t_submit for r in done if r.t_first is not None]
+        waits = [r.t_admit - r.t_submit for r in done]
+        new_tokens = sum(len(r.tokens) for r in done)
+        makespan = max(r.t_done for r in done)
+        decode_rates = [(len(r.tokens) - 1) / (r.t_done - r.t_first)
+                        for r in done if len(r.tokens) > 1
+                        and r.t_done > r.t_first]
+        out = {
+            "requests": len(done), "steps": n_steps, "wall_s": wall,
+            "ms_per_step": 1e3 * wall / max(1, n_steps),
+            "new_tokens": new_tokens,
+            "engine_tokens_per_s": new_tokens / makespan,
+            "request_decode_tokens_per_s_mean": float(np.mean(decode_rates)),
+            "ttft_p50_s": float(np.percentile(ttft, 50)),
+            "ttft_p95_s": float(np.percentile(ttft, 95)),
+            "queue_wait_mean_s": float(np.mean(waits)),
+            "queue_wait_max_s": float(max(waits)),
+            "slot_occupancy_mean": float(np.mean(
+                eng.occupancy_samples[before[4]:])),
+            "dispatch_ms_per_step": 1e3 * (eng.dispatch_s - before[1])
+            / max(1, n_steps),
+            "host_fetch_ms_per_step": 1e3 * (eng.host_fetch_s - before[2])
+            / max(1, n_steps),
+            "telemetry_ms_per_step": 1e3 * (eng.telemetry_s - before[3])
+            / max(1, n_steps),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        print(f"engine, {what}: {json.dumps(out)} [{card}]")
+        return out, {r.rid: [int(t) for t in r.tokens] for r in done}, done
+
+    # (a) arrivals all at once
+    eng = cb_engine(cb_core)
+    reset_counts(int8_gemm)
+    caps0 = cb_core.batch_decode_executables
+    reqs = cb_requests()
+    cb_all, cb_streams, done = cb_run(eng, reqs, None, "arrivals all at once")
+    cb_launches = int8_gemm.launches
+    cb_by_design = dict(int8_gemm.launches_by_design)
+    cb_by_format = dict(int8_gemm.launches_by_format)
+    new_caps = cb_core.batch_decode_executables - caps0
+    cb_expected = (cb_all["steps"] + new_caps) * calls_per_step
+    served = {cb_core.plan_table} | ({cb_core.prefill_plan_table}
+                                     if eng.phase_steps["prefill"] else set())
+    print(f"engine, all at once: {len(done)} of {CB_REQUESTS} requests done "
+          f"({sorted({r.done_reason for r in done})}), int8_gemm launches "
+          f"{cb_launches} (expected ({cb_all['steps']} steps + {new_caps} "
+          f"captures) x {calls_per_step} = {cb_expected}), by design "
+          f"{cb_by_design}, by weight format {cb_by_format}; "
+          f"batch_decode_executables {cb_core.batch_decode_executables} for "
+          f"{len(served)} distinct phase plans served (phase steps "
+          f"{eng.phase_steps})")
+    if len(done) != CB_REQUESTS or any(
+            len(r.tokens) != r.max_new_tokens or r.done_reason != "max_tokens"
+            or not all(0 <= int(t) < cfg.vocab for t in r.tokens)
+            for r in done):
+        raise RuntimeError("the engine did not complete every request with "
+                           "its max_new_tokens")
+    if cb_launches != cb_expected or cb_by_design["B"] != cb_expected or (
+            cb_by_format["int8"] != cb_expected):
+        raise RuntimeError(f"the engine launched int8_gemm {cb_by_design}")
+    if cb_core.batch_decode_executables != len(served):
+        raise RuntimeError("the engine captured a batch step more than once "
+                           "per plan")
+
+    # one engine step, graphed, against the eager decode_step on a clone
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tok = torch.randint(0, cfg.vocab, (CB_SLOTS, 1), generator=gen,
+                        device="cuda")
+    pos = torch.tensor([0, 5, 17, 31, 40, 63, 2, 50], dtype=torch.int32,
+                       device="cuda")
+    active = torch.tensor([1, 1, 1, 0, 1, 1, 0, 1], dtype=torch.bool,
+                          device="cuda")
+    tables = torch.arange(CB_BLOCKS, dtype=torch.int32, device="cuda").view(
+        CB_SLOTS, -1)
+    tables[3] = tables[0]                 # an inactive slot aliasing slot 0
+    copy = clone_cache(eng.cache)
+    got, _ = cb_core.batch_step_for(cb_core.plan_table)(eng.cache, tok, pos,
+                                                        active, tables)
+    with torch.inference_mode():
+        want, copy = decode_step(cb_core.params, copy, tok, pos, cfg, rc,
+                                 plan=cb_core.plan_table, active=active,
+                                 block_tables=tables)
+    same = torch.equal(got, want) and all(
+        torch.equal(eng.cache[0][k], copy[0][k]) for k in copy[0])
+    print(f"one engine step (replayed graph) vs the eager decode_step(..., "
+          f"active=, block_tables=) on a clone of the pools: logits and "
+          f"pools bit for bit {same}")
+    if not same:
+        raise RuntimeError("the engine's graphed step is not the eager step")
+    del copy, got, want
+
+    # eight equal-length requests against the fixed-batch session
+    eng.record_logits = True
+    eq_reqs = [Request(rid=f"eq{i}", prompt=prompt[i].cpu().numpy(),
+                       max_new_tokens=NEW) for i in range(BATCH)]
+    eng.run(eq_reqs, None)
+    eng.record_logits = False
+    first = torch.from_numpy(np.stack([r.first_logits for r in eq_reqs]))
+    sess = ServeSession(cfg, rc, cb_core.params, max_len=max_len,
+                        batch=BATCH, quantize=True)
+    ref = sess.prefill(prompt)[:, -1].float().cpu()
+    sess.reset()
+    full = sess.generate(prompt, NEW).cpu()
+    eq_tokens = torch.tensor([[int(t) for t in r.tokens] for r in eq_reqs])
+    diff = (first - ref).abs().max().item()
+    ref_max = ref.abs().max().item()
+    agree = int((first.argmax(-1) == ref.argmax(-1)).sum().item())
+    print(f"engine vs ServeSession (batch {BATCH}) on the phase-9 prompt: "
+          f"first-step logits max|d|={diff!r}, max|ref|={ref_max!r} (tol "
+          f"{LOGIT_TOL}·max|ref|: the paged strip sums attention over other "
+          f"lengths); greedy first tokens agree on {agree} of {BATCH} (need "
+          f"{MIN_TOKEN_AGREEMENT}); whole streams equal on "
+          f"{int((eq_tokens == full).all(1).sum())} lanes; top-2 gap per "
+          f"lane: engine {top2_gaps(first)}, session {top2_gaps(ref)}")
+    if diff > LOGIT_TOL * ref_max or agree < MIN_TOKEN_AGREEMENT:
+        raise RuntimeError("the engine disagrees with the fixed-batch session")
+    del sess
+    torch.cuda.empty_cache()
+
+    # (b) Poisson arrivals at CB_RATE req/s, and one traced window
+    cb_poisson, _, _ = cb_run(eng, cb_requests(),
+                              poisson_arrivals(CB_REQUESTS, CB_RATE, seed=0),
+                              f"Poisson arrivals at {CB_RATE} req/s")
+    prof = profile_window(torch, lambda: eng.run(
+        cb_requests()[:CB_TRACED], poisson_arrivals(CB_TRACED, CB_RATE,
+                                                    seed=0)))
+    if prof["busy_ms"] > 0:
+        print(f"traced engine window ({CB_TRACED} Poisson requests, profiler "
+              f"on): wall {prof['wall_ms']!r} ms, device busy "
+              f"{prof['busy_ms']!r} ms, device idle share "
+              f"{1 - prof['busy_ms'] / prof['wall_ms']!r}")
+        for name, us in prof["kernels"][:6]:
+            print(f"  device {us / 1e3!r} ms ({us / 1e3 / prof['busy_ms']:.1%}"
+                  f"): {name[:90]}")
+    else:
+        print("traced engine window: the profiler recorded no device time "
+              "(device busy share not measured)")
+    saturated = cb_run(eng, cb_requests(), None,
+                       "arrivals all at once, again")[0]
+    del eng
+    torch.cuda.empty_cache()
+
+    # (c) the int8 KV cache on the paged pool
+    kv_core = DecodeCore(cfg, RunConfig(kv_cache_dtype="int8"),
+                         cb_core.params, quantize=True, plan_batch=CB_SLOTS,
+                         plan_max_len=CB_MAX_LEN, device="cuda")
+    kv_eng = cb_engine(kv_core)
+    cb_kv, kv_streams, _ = cb_run(kv_eng, cb_requests(), None,
+                                  "int8 KV cache, all at once")
+    kv_first = sum(kv_streams[rid][0] == cb_streams[rid][0]
+                   for rid in cb_streams)
+    need = math.ceil(MIN_TOKEN_AGREEMENT / BATCH * CB_REQUESTS)
+    print(f"engine, int8 KV pool ({kv_eng.cache[0]['k'].dtype} codes + "
+          f"{kv_eng.cache[0]['k_scale'].dtype} scales): first tokens agree "
+          f"with the bf16-KV engine on {kv_first} of {CB_REQUESTS} requests "
+          f"(need {need}); whole streams on "
+          f"{sum(kv_streams[r] == cb_streams[r] for r in cb_streams)}")
+    if kv_first < need or kv_eng.cache[0]["k"].dtype != torch.int8:
+        raise RuntimeError("the int8-KV engine disagrees with the bf16-KV "
+                           "engine")
+    del kv_eng, kv_core
+    torch.cuda.empty_cache()
+
+    # (d) adaptive: the shape-bucketed plan service on the sweep kernel
+    ad_core = DecodeCore(cfg, rc, cb_core.params, quantize=True,
+                         plan_batch=CB_SLOTS, plan_max_len=CB_MAX_LEN,
+                         device="cuda")
+    service = PlanService(cfg, BucketLattice.for_engine(CB_SLOTS, CB_MAX_LEN),
+                          backend="pallas")
+    ad_eng = cb_engine(ad_core, plan_service=service)
+    sw_mod.sweep_eval.launches = 0     # the adaptive path starts
+    cb_ad, ad_streams, _ = cb_run(ad_eng, cb_requests(), None,
+                                  "adaptive (PlanService, backend=pallas), "
+                                  "all at once")
+    service.drain()
+    ad_sweep_launches = sw_mod.sweep_eval.launches     # ... and ends here
+    ad = ad_eng.telemetry()["adaptive"]
+    # tables served that gate a projection otherwise than the frozen plan
+    # (tables differing only in activation GEMMs route alike)
+    served_tables = [service._buckets[b].table for b in service._buckets]
+    route_flips = sorted({lab for t in served_tables
+                          for lab in t.flips(ad_core.plan_table)
+                          if lab in projections})
+    same_streams = sum(ad_streams[r] == cb_streams[r] for r in cb_streams)
+    print(f"engine, adaptive: verdict_flips {service.verdict_flips}, plan "
+          f"swaps {ad['plan_swaps']} (swap latency {ad['swap_latency_s']}), "
+          f"bucket transitions {ad['bucket_transitions']}, plan_variants "
+          f"{ad_core.plan_variants} (evictions {ad_core.plan_evictions}), "
+          f"batch_decode_executables {ad_core.batch_decode_executables}; "
+          f"buckets served {len(served_tables)}, projections gated otherwise "
+          f"than the frozen plan in some bucket {route_flips}; sweep_eval "
+          f"launches {ad_sweep_launches}; streams equal to the frozen-plan "
+          f"engine's on {same_streams} of {CB_REQUESTS}; service "
+          f"{json.dumps(ad['service'])[:600]}")
+    if ad_sweep_launches == 0:
+        raise RuntimeError("the adaptive run's plan service launched no "
+                           "sweep_eval")
+    if service.verdict_flips == 0 and not route_flips:
+        if same_streams != CB_REQUESTS:
+            raise RuntimeError("the adaptive engine's streams differ from "
+                               "the frozen-plan engine's")
+    elif ad_core.batch_decode_executables != ad_core.plan_variants:
+        raise RuntimeError("the adaptive engine captured a plan variant more "
+                           "than once")
+    del ad_eng, ad_core, cb_core, service
+    torch.cuda.empty_cache()
+
+    # --- 17. the serving CLI ------------------------------------------------
+    cli = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
+           "--smoke", "--requests", "8", "--quantize"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cli, capture_output=True, text=True, cwd=HERE,
+                          env=env, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cli[1:])} exited {proc.returncode}:\n"
+                           f"{proc.stderr[-3000:]}")
+    cli_report = json.loads(proc.stdout)
+    cli_agg = cli_report["traffic"]["aggregate"]
+    print(f"CLI `python {' '.join(cli[1:])}`: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s, JSON report with keys "
+          f"{sorted(cli_report)}; completed {cli_agg['completed']}, "
+          f"decode_executables {cli_agg['decode_executables']}, "
+          f"engine tokens/s {cli_agg['engine_tokens_per_s']!r}")
+    if cli_agg["completed"] != 8 or cli_report["mode"] != (
+            "continuous-batching"):
+        raise RuntimeError("the serving CLI's report is wrong")
+
+    # --- 18. result lines ----------------------------------------------------
     kernels = [{
         "name": "int8_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_gemm.cu",
@@ -1620,6 +2038,42 @@ def main() -> int:
                 f"{cfg.n_kv_heads}, {dh}) bf16, length {DECODE_S} ({ARCH} "
                 f"decode_32k); its main path is one call of the public "
                 f"wrapper ops.decode_attention (no model calls it)"}]
+    kernels += [{
+        "name": "int8_gemm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/int8_gemm.cu",
+        "replaces": "src/repro/kernels/int8_gemm.py:33",
+        "launches": cb_launches,
+        "max_abs_err": per_step["max_abs_err"],
+        "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
+        "bound_ms": per_step["bound_ms"],
+        "bound_by": ("bytes" if per_step["bytes_ms"] >= per_step["ops_ms"]
+                     else "operations"),
+        "library_ms": per_step["library_ms"],
+        "device_ms": per_step["device_ms"],
+        "library_device_ms": per_step["library_device_ms"],
+        "path": "continuous batching",
+        "design": "+".join(d for d, c in cb_by_design.items() if c),
+        "weights": "int8",
+        "work": f"the {calls_per_step} calls of one {ARCH} decode step at "
+                f"M = {CB_SLOTS} slots (phase 3's per-shape times x calls "
+                f"per step); launches counted over the {CB_REQUESTS}-request "
+                f"all-at-once engine run ({cb_all['steps']} steps replaying "
+                f"the captured graphs, credited per replay)"}, {
+        "name": "sweep_eval", "route": "cuda",
+        "path": "adaptive plan service",
+        "source": "src/repro_torch/kernels/csrc/sweep_eval.cu",
+        "replaces": "src/repro/kernels/sweep_eval.py:58",
+        "launches": ad_sweep_launches,
+        "max_abs_err": 0.0,
+        "ms": sweep_ms, "plain_ms": sweep_plain_ms,
+        "bound_ms": sweep_bound_ms,
+        "bound_by": ("bytes" if sweep_bytes_ms >= sweep_ops_ms
+                     else "operations"),
+        "library_ms": None,
+        "work": f"phase 6's launch on {n_big} rows (times and bound); "
+                f"launches counted over the adaptive engine run "
+                f"(PlanService(backend='pallas') planning each bucket it "
+                f"served on the card)"}]
     for entry in kernels:               # JSON has no NaN: not measured
         for key in ("device_ms", "library_device_ms"):
             if key in entry and not math.isfinite(entry[key]):

@@ -4,7 +4,9 @@ The scalar cost-model modules are copies of the JAX package's (they hold
 no JAX).  `vectorized` is the batched cost model on torch tensors,
 `sweep` the batched engine behind the planner's "vectorized" and
 "pallas" backends (the latter on the hand-written sweep kernel), and
-`pareto` / `campaign` the design-space campaigns on that engine.
+`pareto` / `campaign` the design-space campaigns on that engine, and
+`plan_service` the shape-bucketed plan service the continuous-batching
+engine consults under live traffic.
 """
 from .baseline import evaluate_baseline
 from .campaign import (FRONT_FIELDS, CampaignResult, CampaignSpec,
@@ -19,6 +21,7 @@ from .pareto import (ParetoAccumulator, dominates, pareto_mask,
                      pareto_mask_np, pareto_mask_ref)
 from .memory import (DRAM, LEVELS, RF, SMEM, CiMSystemConfig, configb_count,
                      iso_area_primitive_count)
+from .plan_service import BucketLattice, PlanService
 from .planner import (Decision, decide, make_decision, plan_workload,
                       plan_workload_by_phase, standard_configs, summarize)
 from .sweep import (CIM_BACKENDS, SweepEngine, decide_batched,
@@ -38,6 +41,7 @@ __all__ = [
     "priority_map", "evaluate", "evaluate_cim", "evaluate_baseline",
     "decide", "plan_workload", "standard_configs", "summarize", "Decision",
     "plan_workload_by_phase", "make_decision",
+    "BucketLattice", "PlanService",
     "ANALOG_6T", "ANALOG_8T", "DIGITAL_6T", "DIGITAL_8T", "PRIMITIVES",
     "TENSOR_CORE", "TensorCoreSpec", "DRAM", "SMEM", "RF", "LEVELS",
     "iso_area_primitive_count", "configb_count", "SUPPORTED_BITS",

@@ -12,6 +12,8 @@ in f32, so both sum the same f32 terms.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 NEG_INF = -1e30
@@ -23,9 +25,16 @@ def _gqa_expand(k, n_heads: int):
     return k if kv == n_heads else k.repeat_interleave(n_heads // kv, dim=2)
 
 
-def _scale(d: int, device) -> torch.Tensor:
-    return 1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32,
-                                          device=device))
+@functools.lru_cache(maxsize=None)
+def _scale(d: int) -> float:
+    """1 / sqrt(d) rounded to f32, as a Python float holding that f32
+    value exactly.  It is computed once, on the CPU, so a step captured
+    as a CUDA graph makes no host-to-device copy for it; multiplying an
+    f32 tensor by it gives the same bits as multiplying by the f32
+    tensor (IEEE sqrt and division are correctly rounded on both
+    devices)."""
+    return (1.0 / torch.sqrt(torch.tensor(float(d),
+                                          dtype=torch.float32))).item()
 
 
 def naive_causal(q, k, v, positions_q=None, positions_k=None,
@@ -37,7 +46,7 @@ def naive_causal(q, k, v, positions_q=None, positions_k=None,
     v = _gqa_expand(v, nh)
     sk = k.shape[1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
-                          k.float()) * _scale(d, q.device)
+                          k.float()) * _scale(d)
     pos_q = (positions_q if positions_q is not None
              else torch.arange(sq, device=q.device)[None, :] + (sk - sq))
     pos_k = (positions_k if positions_k is not None
@@ -62,7 +71,7 @@ def flash_jnp(q, k, v, chunk: int = 1024, window: int = 0):
     n_chunks = sk // chunk
     if n_chunks * chunk != sk:
         raise ValueError(f"sk={sk} is not a multiple of chunk={chunk}")
-    scale = _scale(d, q.device)
+    scale = _scale(d)
     pos_q = torch.arange(sq, device=q.device) + (sk - sq)
     qf = q.float()
     m = torch.full((b, nh, sq), NEG_INF, dtype=torch.float32,
@@ -145,7 +154,7 @@ def decode_attend(q, k_cache, v_cache, cache_len, window: int = 0,
     GQA-expanded cache."""
     b, _, nh, d = q.shape
     S, kv = k_cache.shape[1], k_cache.shape[2]
-    scale = _scale(d, q.device)
+    scale = _scale(d)
     pos = torch.arange(S, device=q.device)[None, :]
     valid = pos < cache_len[:, None]
     if window:

@@ -12,17 +12,22 @@ Entry points:
   init(gen, cfg, device)                     -> params
   forward(params, tokens, cfg, rc, plan=plan) -> logits, aux  (prefill)
   init_cache(cfg, rc, batch, max_len, device) -> cache (list of dicts)
-  decode_step(params, cache, tok, pos, cfg, rc, plan) -> logits, cache
+  init_paged_cache(cfg, rc, n_slots, n_blocks, block_size, device)
+                                             -> block-pool cache
+  decode_step(params, cache, tok, pos, cfg, rc, plan
+              [, active, block_tables])      -> logits, cache
 
 Unlike the JAX package, which returns a new cache, `decode_step` writes
 the new token's K/V into `cache` in place and returns the same object.
 With `RunConfig(kv_cache_dtype="int8")` the cache holds int8 codes with a
-bf16 scale per (position, kv head), as in the JAX package.
+bf16 scale per (position, kv head), as in the JAX package, in the
+contiguous and in the paged cache.  `decode_step` makes no host sync:
+`pos`, `active` and `block_tables` may be device tensors, so the step
+can be captured as a CUDA graph (`repro_torch.serving.core`).
 
-Not ported yet: the other families (moe, ssm, hybrid, vlm, audio),
-ragged per-slot positions and the paged cache (`block_tables`), with the
-int8 KV cache on it; they raise NotImplementedError naming their
-ROADMAP.md queue-1 item ('The other families', 'Batched serving').
+Not ported yet: the other families (moe, ssm, hybrid, vlm, audio); they
+raise NotImplementedError naming their ROADMAP.md queue-1 item ('The
+other families').
 """
 from __future__ import annotations
 
@@ -143,6 +148,112 @@ def _dequantize_kv(q, scale):
     return q.to(torch.bfloat16) * scale[..., None]
 
 
+def _pool(shape, dtype, device):
+    """Zeros of `shape` = (periods, n_blocks, block_size, ...): a view of
+    a buffer that holds one more block after each period's pool, the
+    spare block `_paged_write` sends inactive slots' rows to.  Made
+    outside inference mode, whose tensors keep no view base."""
+    with torch.inference_mode(False):
+        base = torch.zeros((shape[0], shape[1] + 1) + tuple(shape[2:]),
+                           dtype=dtype, device=device)
+        return base[:, :shape[1]]
+
+
+def init_paged_cache(cfg: ModelConfig, rc: RunConfig, n_slots: int,
+                     n_blocks: int, block_size: int, device="cuda"):
+    """Block-pool KV cache for slot-scheduled continuous batching.
+
+    Each attention slot gets a shared pool of `n_blocks` fixed-size
+    blocks, (periods, n_blocks, block_size, kv_heads, head_dim), as in
+    the JAX package, instead of one (batch, max_len) strip per request:
+    each serving slot owns a host-managed list of physical block ids (its
+    block table).  An "int8" cache adds bf16 "k_scale" / "v_scale" pools
+    of shape (periods, n_blocks, block_size, kv_heads).  Every pool is a
+    view of a buffer with one spare block per period beyond the pool
+    (see `_paged_write`); the pool itself has the JAX package's shape.
+    `n_slots` is unused by the dense family (it sizes the per-slot state
+    of the other families)."""
+    del n_slots
+    int8 = rc.kv_cache_dtype == "int8"
+    dtype = torch.int8 if int8 else dtype_of(rc.kv_cache_dtype)
+    shape = (n_periods(cfg), n_blocks, block_size, cfg.n_kv_heads,
+             cfg.head_dim())
+    caches = []
+    for _ in period_slots(cfg):
+        c = {"k": _pool(shape, dtype, device), "v": _pool(shape, dtype, device)}
+        if int8:
+            for key in ("k_scale", "v_scale"):
+                c[key] = _pool(shape[:-1], torch.bfloat16, device)
+        caches.append(c)
+    return caches
+
+
+def clone_cache(cache):
+    """A copy of a cache from `init_cache` or `init_paged_cache` (each
+    pool copied with its spare block, so `decode_step` can write it)."""
+    out = []
+    for entry in cache:
+        copy = {}
+        for key, t in entry.items():
+            base = t._base
+            if base is not None and base.dim() == t.dim() and (
+                    base.shape[1] == t.shape[1] + 1):
+                with torch.inference_mode(False):
+                    copy[key] = base.clone()[:, :t.shape[1]]
+            else:
+                copy[key] = t.clone()
+        out.append(copy)
+    return out
+
+
+def _rows_with_spare(pool):
+    """The pool (n_blocks, block_size, ...) as rows (n_blocks *
+    block_size + block_size, ...) that run on into its spare block.
+    Raises unless the pool was allocated with one (`init_paged_cache`):
+    past another pool's last block lie live rows."""
+    n_blocks, bs = pool.shape[0], pool.shape[1]
+    base, nd = pool._base, pool.dim()
+    row = pool[0, 0].numel()
+    ok = (base is not None and base.is_contiguous() and base.dim() >= nd
+          and base.shape[base.dim() - nd] == n_blocks + 1
+          and tuple(base.shape[base.dim() - nd + 1:]) == tuple(pool.shape[1:])
+          and pool.stride()[:2] == (bs * row, row)
+          and pool[0, 0].is_contiguous())
+    if not ok:
+        raise ValueError("a paged pool needs the spare block of "
+                         "init_paged_cache to drop inactive slots' rows")
+    return pool.as_strided(((n_blocks + 1) * bs,) + tuple(pool.shape[2:]),
+                           (row,) + tuple(pool.stride()[2:]))
+
+
+def _paged_write(pool, new, pos, block_tables, active):
+    """Scatter one row per slot into a block pool, in place.
+
+    pool: (n_blocks, block_size, ...); new: (b, ...); pos: (b,) logical
+    positions; block_tables: (b, max_blocks) physical block ids.  An
+    inactive slot's row goes to the pool's spare block, past the pool,
+    and so touches no block (the JAX package sends it out of bounds and
+    drops it; torch's index ops raise on an out-of-bounds index, and
+    rewriting a live row with its old value would race with the slot
+    that writes it).  Active slots own distinct blocks, so their rows
+    never collide.  Returns the pool."""
+    n_blocks, bs = pool.shape[0], pool.shape[1]
+    pos = pos.long()
+    blk = torch.gather(block_tables.long(), 1, (pos // bs)[:, None])[:, 0]
+    phys = blk * bs + pos % bs
+    if active is not None:
+        phys = torch.where(active, phys, n_blocks * bs)
+    _rows_with_spare(pool).index_copy_(0, phys, new.to(pool.dtype))
+    return pool
+
+
+def _paged_view(pool, block_tables):
+    """Gather each slot's logical KV strip from the pool:
+    (n_blocks, bs, ...) + (b, max_blocks) -> (b, max_blocks * bs, ...)."""
+    v = pool[block_tables.long()]
+    return v.reshape((v.shape[0], v.shape[1] * v.shape[2]) + v.shape[3:])
+
+
 # --- forward (prefill) and decode --------------------------------------------
 
 def _layer(tree, i: int):
@@ -199,30 +310,43 @@ def forward(params, tokens, cfg: ModelConfig, rc: RunConfig,
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
                 rc: RunConfig, plan=None, active=None, block_tables=None):
-    """One decode step.  tokens: (b, 1) int; pos: the current length, an
-    int (or 0-d tensor) shared by the batch.  Writes this token's K/V at
-    `pos` into `cache` in place and returns (logits (b, 1, vocab), cache).
-    `plan` is the KernelPlanTable: gated projection labels run the INT8
-    GEMM kernel.  With rc.kv_cache_dtype "int8" the new K/V are
-    quantized per (position, kv head), written with their scales, and
-    attention reads the dequantized cache, as in the JAX package."""
+    """One decode step.  tokens: (b, 1) int; pos: the current length
+    shared by the batch, an int or a 0-d tensor, OR (b,) per-slot lengths
+    (ragged, continuous batching).  Writes this token's K/V into `cache`
+    in place and returns (logits (b, 1, vocab), cache).  `plan` is the
+    KernelPlanTable: gated projection labels run the INT8 GEMM kernel.
+    With rc.kv_cache_dtype "int8" the new K/V are quantized per
+    (position, kv head), written with their scales, and attention reads
+    the dequantized cache, as in the JAX package.
+
+    Continuous batching (as in the JAX package):
+      * ragged `pos` (b,): each slot attends and ropes at its own length;
+      * `active` (b,) bool: inactive (free or draining) slots write no
+        cache row;
+      * `block_tables` (b, max_blocks) int: K/V live in the block pool of
+        `init_paged_cache`; the step scatters one row into each slot's
+        current block and attends over the slot's gathered strip.
+        Required whenever `pos` is ragged.
+
+    No input is read on the host: a tensor `pos` stays on the device, so
+    the step can be captured as a CUDA graph and replayed."""
     _check_family(cfg)
-    if active is not None or block_tables is not None:
-        raise NotImplementedError(
-            "the paged, slot-masked decode path (and the int8 KV cache on "
-            "it) is not ported yet (ROADMAP.md, queue 1, 'Batched serving')")
-    if torch.is_tensor(pos):
-        if pos.ndim != 0:
-            raise NotImplementedError(
-                "ragged per-slot positions need the paged cache, not ported "
-                "yet (ROADMAP.md, queue 1, 'Batched serving')")
-        pos = int(pos)
+    ragged = torch.is_tensor(pos) and pos.ndim == 1
+    if torch.is_tensor(pos) and pos.ndim > 1:
+        raise ValueError(f"pos must be 0-d or (b,), got {tuple(pos.shape)}")
+    if ragged and block_tables is None:
+        raise ValueError("ragged per-slot positions need a paged KV cache: "
+                         "pass block_tables (see init_paged_cache)")
     int8_kv = rc.kv_cache_dtype == "int8"
     b = tokens.shape[0]
     x = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
     nh, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
-    pvec = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    lens = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
+    if torch.is_tensor(pos):
+        pvec = pos.long().reshape(-1, 1).expand(b, 1)
+        lens = pvec[:, 0] + 1
+    else:
+        pvec = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+        lens = torch.full((b,), pos + 1, dtype=torch.long, device=x.device)
     slot_params, slot_cache = params["slots"][0], cache[0]
     for i in range(n_periods(cfg)):
         sp = _layer(slot_params, i)
@@ -230,17 +354,31 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
         q, k, v = qkv_proj(sp["attn"], h, nh, kvh, dh, plan)
         q = apply_rope(q, pvec, cfg.rope_theta)
         k = apply_rope(k, pvec, cfg.rope_theta)
-        ck, cv = slot_cache["k"][i], slot_cache["v"][i]
+        layer = {key: t[i] for key, t in slot_cache.items()}
         if int8_kv:
-            cks, cvs = slot_cache["k_scale"][i], slot_cache["v_scale"][i]
             (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
-            ck[:, pos], cks[:, pos] = kq[:, 0], ks[:, 0]
-            cv[:, pos], cvs[:, pos] = vq[:, 0], vs[:, 0]
-            kd, vd = _dequantize_kv(ck, cks), _dequantize_kv(cv, cvs)
+            rows = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
         else:
-            ck[:, pos] = k[:, 0].to(ck.dtype)
-            cv[:, pos] = v[:, 0].to(cv.dtype)
-            kd, vd = ck, cv
+            rows = {"k": k, "v": v}
+        if block_tables is not None:
+            for key, new in rows.items():
+                _paged_write(layer[key], new[:, 0], pvec[:, 0],
+                             block_tables, active)
+            strip = {key: _paged_view(layer[key], block_tables)
+                     for key in rows}
+        else:
+            for key, new in rows.items():
+                if torch.is_tensor(pos):
+                    layer[key].index_copy_(1, pvec[:1, 0],
+                                           new.to(layer[key].dtype))
+                else:
+                    layer[key][:, pos] = new[:, 0].to(layer[key].dtype)
+            strip = layer
+        if int8_kv:
+            kd = _dequantize_kv(strip["k"], strip["k_scale"])
+            vd = _dequantize_kv(strip["v"], strip["v_scale"])
+        else:
+            kd, vd = strip["k"], strip["v"]
         o = decode_attend(q, kd, vd, lens, window=cfg.sliding_window,
                           grouped=rc.gqa_einsum)
         x = x + attn_out_proj(sp["attn"], o.reshape(b, 1, nh * dh), plan)

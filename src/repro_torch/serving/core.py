@@ -2,25 +2,46 @@
 
 `DecodeCore` owns everything that is fixed before the first request and
 never changes while requests stream through: the model/run configs, the
-(optionally INT8-, INT4- or FP8-quantized) parameters on one device, and
-the What/When/Where verdicts as a static `KernelPlanTable` per serving
-phase.
-`ServeSession` (repro_torch.serving.engine) is a thin mutable shell over
-one core.
+(optionally INT8-, INT4- or FP8-quantized) parameters on one device, the
+What/When/Where verdicts as a static `KernelPlanTable` per serving
+phase, and the step programs.  `ServeSession`
+(repro_torch.serving.engine) and `ContinuousBatchingEngine`
+(repro_torch.serving.scheduler) are thin mutable shells over one core.
 
 The verdicts come from the batched planner (backend="vectorized") on the
 sweep engine of the core's own device; `plan_cache_telemetry` reports
 how much of that plan build the engine's result cache served.
 
-The JAX package compiles the step once per plan and counts executables;
-the port runs the step eagerly, so every step takes the routes of the
-core's frozen tables.  A CUDA-graph capture of the step and the
-continuous-batching step are not ported yet (ROADMAP.md).
+Two kinds of step, as in the JAX package, which compiles each once per
+plan:
+
+  * `step(cache, tokens, pos)` / `prefill_step(...)` — the fixed-batch
+    step (one position shared by the batch) under the decode or the
+    prefill plan table, what `ServeSession` drives;
+  * `batch_step_for(plan)` -> `(cache, tokens, pos, active,
+    block_tables) -> (logits, cache)` — the continuous-batching step:
+    ragged per-slot positions, an active-slot mask and a paged KV block
+    pool (models.model.init_paged_cache).  Variants are memoized per
+    plan table in an LRU bounded by `max_plan_variants`, so an adaptive
+    engine swapping between plans reuses each variant's program.
+
+On a CUDA core each program is a CUDA graph (`serving.graphs.StepGraph`),
+captured once, on its first call, and replayed after: the counterpart of
+the JAX package's one compiled executable.  The step's inputs are copied
+into the graph's static tensors; the cache is captured by address and
+updated in place, so a caller keeps passing the same cache (a different
+cache is a new capture).  `decode_executables`, `prefill_executables` and
+`batch_decode_executables` count captures: exactly 1 after any
+fixed-batch traffic, and one per distinct plan served for the batch
+step.  A capture that fails raises; it never falls back to the eager
+step.  On a CPU core the steps run eagerly and those counters return
+None, as the JAX package's do when its jit-cache probe is missing.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
+from collections import OrderedDict
 from typing import Any
 
 import torch
@@ -33,6 +54,7 @@ from ..models import decode_step, init_cache
 from ..models.layers import route_trace
 from ..quant import (PRECISIONS, KernelPlanTable,
                      quantize_model_params_lowbit, strip_model_prefix)
+from .graphs import StepGraph
 
 
 def sample_token(cfg: ModelConfig, logits, temperature: float,
@@ -98,8 +120,14 @@ class DecodeCore:
     plan_batch: int = 8
     plan_max_len: int = 1024
     device: Any = "cuda"
+    # bound on cached batch-step variants (one per distinct plan table
+    # the adaptive layer has served)
+    max_plan_variants: int = 4
 
     def __post_init__(self):
+        if self.max_plan_variants < 1:
+            raise ValueError(f"max_plan_variants must be >= 1, "
+                             f"got {self.max_plan_variants}")
         if self.quantize and self.precision not in PRECISIONS:
             raise ValueError(f"unknown precision {self.precision!r} "
                              "(expected int8/int4/fp8)")
@@ -118,6 +146,10 @@ class DecodeCore:
         self._plan_lock = threading.Lock()
         self._verdict_table = None
         self._phase_verdict_tables = None
+        self._graphs: dict = {}          # fixed-batch StepGraphs
+        self._batch_steps: OrderedDict = OrderedDict()
+        self._exec_lock = threading.Lock()
+        self.plan_evictions = 0
         self.plan_table = None
         self.prefill_plan_table = None
         if self.quantize:
@@ -203,21 +235,102 @@ class DecodeCore:
         return self.verdict_table.use_cim(
             strip_model_prefix(label, self.cfg.name))
 
-    # --- the two steps ---------------------------------------------------
+    # --- the steps ---------------------------------------------------------
+
+    @property
+    def graphed(self) -> bool:
+        """True when the steps run as CUDA graphs (a CUDA core)."""
+        return self.device.type == "cuda"
+
+    def _fixed(self, plan, cache, tokens, pos):
+        with torch.inference_mode():
+            if not self.graphed:
+                return decode_step(self.params, cache, tokens, pos, self.cfg,
+                                   self.rc, plan=plan)
+            key = (plan, _cache_key(cache), tuple(tokens.shape))
+            graph = self._graphs.get(key)
+            if graph is None:
+                cfg, rc, params = self.cfg, self.rc, self.params
+                graph = self._graphs[key] = StepGraph(
+                    lambda t, p: decode_step(params, cache, t, p, cfg, rc,
+                                             plan=plan)[0], keep=cache)
+            return graph(tokens, pos), cache
 
     def step(self, cache, tokens, pos):
-        """Fixed-batch decode step (uniform position), gated by the
-        decode plan; updates `cache` in place."""
-        with torch.inference_mode():
-            return decode_step(self.params, cache, tokens, pos, self.cfg,
-                               self.rc, plan=self.plan_table)
+        """Fixed-batch decode step (one position shared by the batch: an
+        int or a 0-d device tensor), gated by the decode plan; updates
+        `cache` in place and returns (logits, cache)."""
+        return self._fixed(self.plan_table, cache, tokens, pos)
 
     def prefill_step(self, cache, tokens, pos):
         """The prefill-phase per-token step: the same decode step gated by
-        the *prefill* plan table."""
-        with torch.inference_mode():
-            return decode_step(self.params, cache, tokens, pos, self.cfg,
-                               self.rc, plan=self.prefill_plan_table)
+        the *prefill* plan table (one shared program when the phase
+        tables are equal)."""
+        return self._fixed(self.prefill_plan_table, cache, tokens, pos)
+
+    def batch_step_for(self, plan) -> "BatchStep":
+        """The continuous-batching step for one (versioned) plan table:
+        (cache, tokens, pos, active, block_tables) -> (logits, cache),
+        with pos (b,) int, active (b,) bool and block_tables (b,
+        max_blocks) int device tensors — join, evict and ragged lengths
+        replay the same program.
+
+        Variants are memoized per plan table (the table's hash and
+        equality are its version) in an LRU bounded by
+        `max_plan_variants`; a table evicted from the bound is captured
+        again if it returns (`plan_evictions` counts the drops)."""
+        with self._exec_lock:
+            fn = self._batch_steps.get(plan)
+            if fn is None:
+                fn = self._batch_steps[plan] = BatchStep(self, plan)
+            self._batch_steps.move_to_end(plan)
+            while len(self._batch_steps) > self.max_plan_variants:
+                self._batch_steps.popitem(last=False)
+                self.plan_evictions += 1
+        return fn
+
+    @property
+    def batch_step(self) -> "BatchStep":
+        """The continuous-batching step of this core's own decode plan
+        table (the non-adaptive path) — see `batch_step_for`."""
+        return self.batch_step_for(self.plan_table)
+
+    @property
+    def plan_variants(self) -> int:
+        """Distinct plan tables with a live batch-step variant."""
+        with self._exec_lock:
+            return len(self._batch_steps)
+
+    def _captures(self, plan) -> int | None:
+        if not self.graphed:
+            return None
+        return sum(g.captures for (p, *_), g in self._graphs.items()
+                   if p == plan)
+
+    @property
+    def decode_executables(self) -> int | None:
+        """CUDA graphs captured for the fixed-batch decode step (exactly 1
+        after any traffic through one cache).  None on a CPU core, where
+        the step runs eagerly."""
+        return self._captures(self.plan_table)
+
+    @property
+    def prefill_executables(self) -> int | None:
+        """CUDA graphs captured for the prefill-phase step (the decode
+        step's own graph, and count, when the phase tables are equal).
+        None on a CPU core."""
+        return self._captures(self.prefill_plan_table)
+
+    @property
+    def batch_decode_executables(self) -> int | None:
+        """CUDA graphs captured across every cached batch-step variant:
+        1 for frozen-plan traffic, the number of distinct plan tables
+        for adaptive traffic.  None on a CPU core."""
+        if not self.graphed:
+            return None
+        with self._exec_lock:
+            steps = list(self._batch_steps.values())
+        return sum(s.captures for s in steps)
 
     def route_report(self, batch: int, max_len: int) -> dict:
         """label -> {route, use_cim, what, where} as the decode step runs
@@ -238,3 +351,41 @@ class DecodeCore:
                 "what": entry.what if entry else "baseline",
                 "where": entry.where if entry else "PE"}
         return report
+
+
+def _cache_key(cache) -> tuple:
+    """A cache's identity: the addresses of its tensors."""
+    return tuple(t.data_ptr() for t in _leaves(cache))
+
+
+class BatchStep:
+    """The continuous-batching step of one plan table (see
+    `DecodeCore.batch_step_for`): one CUDA graph per cache on a CUDA
+    core, the eager step on a CPU core."""
+
+    def __init__(self, core: DecodeCore, plan):
+        self.core = core
+        self.plan = plan
+        self.graphs: dict = {}
+
+    @property
+    def captures(self) -> int:
+        return sum(g.captures for g in self.graphs.values())
+
+    def __call__(self, cache, tokens, pos, active, block_tables):
+        core, plan = self.core, self.plan
+        with torch.inference_mode():
+            if not core.graphed:
+                return decode_step(core.params, cache, tokens, pos,
+                                   core.cfg, core.rc, plan=plan,
+                                   active=active, block_tables=block_tables)
+            key = (_cache_key(cache), tuple(tokens.shape),
+                   tuple(block_tables.shape))
+            graph = self.graphs.get(key)
+            if graph is None:
+                cfg, rc, params = core.cfg, core.rc, core.params
+                graph = self.graphs[key] = StepGraph(
+                    lambda t, p, a, bt: decode_step(
+                        params, cache, t, p, cfg, rc, plan=plan, active=a,
+                        block_tables=bt)[0], keep=cache)
+            return graph(tokens, pos, active, block_tables), cache

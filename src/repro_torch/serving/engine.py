@@ -8,6 +8,8 @@ kernel, ungated ones the plain torch matmul (prefill runs the same
 per-token step under the prefill table).  `use_cim_for(label)` exposes
 the per-GEMM gate; `route_report()` reports the route each label runs.
 `make_prefill` is the full-sequence prefill forward under a plan table.
+On a CUDA core every step of the session replays one captured CUDA graph
+(`DecodeCore`); `decode_executables` / `prefill_executables` count them.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from .core import DecodeCore, sample_token
 def make_serve_step(cfg: ModelConfig, rc: RunConfig,
                     plan: KernelPlanTable | None = None) -> Callable:
     """(params, cache, tokens, pos) -> (logits, cache) — one decode step
-    gated by `plan`."""
+    gated by `plan`, run eagerly (the function `DecodeCore` captures)."""
     def step(params, cache, tokens, pos):
         return decode_step(params, cache, tokens, pos, cfg, rc, plan=plan)
     return step
@@ -77,6 +79,7 @@ class ServeSession:
     device: Any = "cuda"
 
     def __post_init__(self):
+        self.cache = None
         self.core = DecodeCore(self.cfg, self.rc, self.params,
                                quantize=self.quantize, gated=self.gated,
                                precision=self.precision,
@@ -119,12 +122,31 @@ class ServeSession:
         step runs them (shape-only step, no compute)."""
         return self.core.route_report(self.batch, self.max_len)
 
+    @property
+    def decode_executables(self) -> int | None:
+        """CUDA graphs captured for this session's decode step (exactly 1
+        after any traffic); None on a CPU session, which runs eagerly."""
+        return self.core.decode_executables
+
+    @property
+    def prefill_executables(self) -> int | None:
+        """CUDA graphs captured for the prefill-phase step — see
+        DecodeCore.prefill_executables."""
+        return self.core.prefill_executables
+
     # --- request state --------------------------------------------------
 
     def reset(self) -> None:
-        """Clear the KV cache and position for a fresh request."""
-        self.cache = init_cache(self.cfg, self.rc, self.batch, self.max_len,
-                                device=self.device)
+        """Clear the KV cache and position for a fresh request.  The cache
+        is zeroed in place, never reallocated: the core's CUDA graphs
+        captured it by address."""
+        if getattr(self, "cache", None) is None:
+            self.cache = init_cache(self.cfg, self.rc, self.batch,
+                                    self.max_len, device=self.device)
+        else:
+            for entry in self.cache:
+                for t in entry.values():
+                    t.zero_()
         self.pos = 0
 
     def prefill(self, tokens):

@@ -619,3 +619,169 @@ def test_prefill_forward_on_card_matches_cpu(cuda, dtype):
     err = (got.float().cpu() - want.float()).abs().max().item()
     tol = 1e-5 if dtype == "float32" else 2.0 ** -6
     assert err <= tol * want.float().abs().max().item(), err
+
+
+# --- the serving steps as CUDA graphs ----------------------------------------
+# Bitwise: a replayed graph launches the eager step's kernels in the same
+# order on the same inputs, so logits and caches equal bit for bit.
+
+def _graph_core(cuda, kv="bfloat16", gate_all=True):
+    """A CUDA DecodeCore over reduced qwen2-7b (bf16, INT8 weights); with
+    gate_all the decode and prefill tables send every label to the GEMM
+    kernel (at d_model 64 the planner gates none)."""
+    from repro_torch.serving import DecodeCore
+    cfg = reduced(ARCHS["qwen2-7b"])
+    rc = RunConfig(kv_cache_dtype=kv)
+    params = init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                  device="cuda")
+    core = DecodeCore(cfg, rc, params, quantize=True, plan_batch=4,
+                      plan_max_len=24, device="cuda")
+    if gate_all:
+        table = core.plan_table
+        for lab in table.labels:
+            if not table.use_cim(lab):
+                table = table.with_flip(lab)
+        core.plan_table = core.prefill_plan_table = table
+    return cfg, rc, core
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_graphed_fixed_step_equals_eager(cuda, kv):
+    from repro_torch.models import clone_cache, init_cache
+    from repro_torch.serving import make_serve_step
+    cfg, rc, core = _graph_core(cuda, kv)
+    cache = init_cache(cfg, rc, 4, 12, device="cuda")
+    copy = clone_cache(cache)
+    eager = make_serve_step(cfg, rc, core.plan_table)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for pos in range(6):
+        tok = torch.randint(0, cfg.vocab, (4, 1), generator=gen,
+                            device="cuda")
+        got, cache = core.step(cache, tok, pos)
+        with torch.inference_mode():
+            want, copy = eager(core.params, copy, tok, pos)
+        assert torch.equal(got, want), pos
+    for key in cache[0]:
+        assert torch.equal(cache[0][key], copy[0][key])
+    assert core.decode_executables == core.prefill_executables == 1
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_graphed_batch_step_equals_eager(cuda, kv):
+    """Ragged positions, an inactive slot whose table aliases a live
+    block, tables changing between replays: logits and pools bit for bit
+    against the eager decode_step on a clone of the pools.  Active slots
+    own distinct blocks, as the engine's allocator guarantees (two active
+    slots writing one row would race in both versions)."""
+    from repro_torch.models import clone_cache, decode_step, init_paged_cache
+    cfg, rc, core = _graph_core(cuda, kv)
+    pools = init_paged_cache(cfg, rc, 3, 12, 4, device="cuda")
+    copy = clone_cache(pools)
+    step = core.batch_step
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    tables = torch.tensor([[0, 1, 2], [3, 4, 5], [0, 6, 7]],
+                          dtype=torch.int32, device="cuda")
+    for t in range(7):
+        tok = torch.randint(0, cfg.vocab, (3, 1), generator=gen,
+                            device="cuda")
+        pos = torch.tensor([t, t + 3, t], dtype=torch.int32, device="cuda")
+        # slot 2 idles on slot 0's blocks, then owns blocks of its own
+        active = torch.tensor([True, True, t >= 4 and t % 2 == 0],
+                              device="cuda")
+        if t == 4:
+            tables[2] = torch.tensor([8, 9, 10], device="cuda")
+        got, pools = step(pools, tok, pos, active, tables)
+        with torch.inference_mode():
+            want, copy = decode_step(core.params, copy, tok, pos, cfg, rc,
+                                     plan=core.plan_table, active=active,
+                                     block_tables=tables)
+        assert torch.equal(got, want), t
+    for key in pools[0]:
+        assert torch.equal(pools[0][key], copy[0][key])
+    assert core.batch_decode_executables == 1 and step.captures == 1
+
+
+def test_replays_credit_the_launch_counters(cuda):
+    """A replay launches nothing from Python, yet the counters move by
+    what the captured step launched: 7 projections per layer + lm_head,
+    all on design B, exactly as the eager step counts."""
+    from repro_torch.models import init_cache
+    cfg, rc, core = _graph_core(cuda)
+    per_step = 7 * cfg.n_layers + 1
+    cache = init_cache(cfg, rc, 4, 12, device="cuda")
+    tok = torch.zeros((4, 1), dtype=torch.long, device="cuda")
+    before = (int8_gemm.launches, dict(int8_gemm.launches_by_design),
+              dict(int8_gemm.launches_by_format))
+    core.step(cache, tok, 0)                 # warm-up + capture + replay
+    assert int8_gemm.launches - before[0] == 2 * per_step
+    start = (int8_gemm.launches, dict(int8_gemm.launches_by_design),
+             dict(int8_gemm.launches_by_format))
+    for pos in range(1, 6):
+        core.step(cache, tok, pos)
+    assert int8_gemm.launches - start[0] == 5 * per_step
+    assert int8_gemm.launches_by_design["B"] - start[1]["B"] == 5 * per_step
+    assert int8_gemm.launches_by_format["int8"] - start[2]["int8"] == (
+        5 * per_step)
+    assert core.decode_executables == 1
+
+
+def test_engine_captures_once_through_slot_churn(cuda):
+    """Back-to-back runs of different ragged traffic (joins at full
+    occupancy, evictions) replay the one captured batch step."""
+    from repro_torch.serving import ContinuousBatchingEngine
+    from repro_torch.serving import synthetic_requests
+    cfg, _, core = _graph_core(cuda)
+    eng = ContinuousBatchingEngine(core, n_slots=2, max_len=24, block_size=4)
+    streams = []
+    for n_req, seed in ((3, 11), (4, 12), (3, 11)):
+        eng.run(synthetic_requests(cfg, n_req, seed=seed, prompt_len=(3, 6),
+                                   new_tokens=(3, 9)), None)
+        streams.append([[int(t) for t in r.tokens]
+                        for r in eng.completed[-n_req:]])
+        assert eng.decode_executables == 1
+    assert streams[0] == streams[2]           # replays are deterministic
+    tel = eng.telemetry()["aggregate"]
+    assert tel["completed"] == 10 and tel["kv_donation_ok"] is True
+    assert tel["decode_executables"] == 1
+
+
+def test_reset_keeps_the_graph_valid(cuda):
+    from repro_torch.serving import ServeSession
+    cfg = reduced(ARCHS["qwen2-7b"])
+    params = init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                  device="cuda")
+    sess = ServeSession(cfg, RunConfig(), params, max_len=12, batch=2,
+                        quantize=True, device="cuda")
+    prompt = torch.tensor([[5, 6, 7], [8, 9, 10]], device="cuda")
+    ptrs = [t.data_ptr() for t in sess.cache[0].values()]
+    first = sess.generate(prompt, 5)
+    sess.reset()
+    assert [t.data_ptr() for t in sess.cache[0].values()] == ptrs
+    assert not any(bool(t.any()) for t in sess.cache[0].values())
+    assert torch.equal(sess.generate(prompt, 5), first)
+    assert sess.decode_executables == 1
+
+
+def test_failed_capture_raises_and_never_runs_eagerly(cuda, monkeypatch):
+    """A step that reads a tensor on the host cannot be captured: the
+    call raises, and so does the next one (no eager fallback)."""
+    core_mod = importlib.import_module("repro_torch.serving.core")
+    from repro_torch.models import init_cache
+    cfg, rc, core = _graph_core(cuda, gate_all=False)
+    real = core_mod.decode_step
+    calls = []
+
+    def syncing_step(*args, **kwargs):
+        logits, cache = real(*args, **kwargs)
+        calls.append(float(logits.float().sum().item()))   # a host read
+        return logits, cache
+
+    monkeypatch.setattr(core_mod, "decode_step", syncing_step)
+    cache = init_cache(cfg, rc, 2, 8, device="cuda")
+    tok = torch.zeros((2, 1), dtype=torch.long, device="cuda")
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="capture"):
+            core.step(cache, tok, 0)
+    assert len(calls) == 2                   # the two warm-ups only
+    assert core.decode_executables == 0
+    torch.cuda.synchronize()                 # the card is still usable

@@ -148,9 +148,11 @@ def test_unported_paths_raise():
         init(torch.Generator().manual_seed(0), tcfg, device="cpu"))
     cache = init_cache(tcfg, trc, 2, 4, device="cpu")
     tok = torch.zeros((2, 1), dtype=torch.long)
-    with pytest.raises(NotImplementedError):
+    # the paged path is ported: ragged positions without a block pool
+    # raise as in the JAX package, and a contiguous cache is no pool
+    with pytest.raises(ValueError, match="block_tables"):
         decode_step(tp, cache, tok, torch.tensor([0, 1]), tcfg, trc)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="spare block"):
         decode_step(tp, cache, tok, 0, tcfg, trc,
                     block_tables=torch.zeros((2, 1), dtype=torch.long))
     with pytest.raises(NotImplementedError):
