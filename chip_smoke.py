@@ -6,7 +6,9 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It drives the port's main paths on the card: the planner-gated serving of
-qwen2-7b at full width (28 layers, random weights from a seed) with INT8,
+qwen2-7b, qwen2-moe-a2.7b and mamba2-780m at full width (random weights
+from a seed; jamba-1.5-large-398b's mixed attention / mamba, dense / MoE
+period at reduced size), for qwen2-7b with INT8,
 FP8 and INT4 weights and with the int8 KV cache, each step a replayed
 CUDA graph, its continuous batching (32 ragged requests through the
 paged, slot-masked engine, also adaptive and with the int8 KV pool) and
@@ -129,7 +131,46 @@ campaigns.  In order it:
    otherwise, else one capture per live plan variant;
 17. runs `python -m repro_torch.launch.serve --arch qwen2-7b --smoke
    --requests 8 --quantize` as a subprocess: exit 0 and a JSON report;
-18. prints one JSON line of kernel numbers, the card line, and last
+18. frees every qwen2-7b tree and graph pool (at most FREED_GIB stays
+   allocated), then holds the INT8 GEMM kernel against its plain version
+   at every 2-D projection shape of qwen2-moe-a2.7b and mamba2-780m at
+   M = 8 (design B) and M = 2048 (design A where `plan_gemm` picks it:
+   mamba2's lm_head, N = 50280, is not 16-aligned and runs B), including
+   mamba2's K = 1536, N = 48 and 128, and of reduced jamba at M = 8, each
+   row checked for the design `plan_gemm` plans; and the flash kernel at
+   qwen2-moe's (1, 2048, 16/16, 128) (group size 1) in both dtypes, timed
+   against its plain version and SDPA;
+19. serves qwen2-moe-a2.7b at full width (24 layers, 60 experts top-4 + 4
+   shared, seed 0, INT8, gated, batch 8, 16 + 16 steps): the route report
+   (every gated 2-D label on the kernel, the experts on the dequant
+   einsums), int8_gemm launches equal to the gated calls of each phase's
+   table times its steps, all on design B, one capture per step,
+   both steps bit for bit against the eager step on a clone of the
+   cache, the ungated session (0 launches, first-step logits within
+   LOGIT_TOL), ms/step, tokens/s, peak memory and a traced step; then
+   times one layer's expert contractions alone (x 24) against it;
+20. runs its (1, 2048) prefill forward (buffered dispatch) with
+   attn_impl="pallas": 24 flash launches on "wgmma", int8_gemm launches
+   per the route trace and `plan_gemm`'s designs, logits against the
+   `flash_jnp` forward within LOGIT_TOL, wall time and a traced forward;
+21. runs the continuous engine on it (8 slots, 16
+   `synthetic_requests(seed=0, ...)` all at once): every request done,
+   launches per phase table, no new capture, one replayed step bit for
+   bit against the eager `decode_step(..., active=, block_tables=)`;
+22.-24. do phases 19-21 for mamba2-780m (48 layers; ssm-BCdt on the
+   kernel 3 times a layer a step); its prefill forward (chunk 256, no
+   flash) is checked against its first SSM_CHECK positions fed one by
+   one through the graphed step within LOGIT_TOL; its engine runs the
+   same requests a second time, every joining slot's state and conv
+   carry reading 0 after its reset, with the same streams;
+25. serves and runs the engine on jamba-1.5-large-398b at reduced(...)
+   (printed as reduced: a full-width period is 4 MoE layers of 16
+   experts of 8192 x 24576, ~46 GB at int8), with the checks of 19 and
+   24;
+26. runs `python -m repro_torch.launch.serve --arch mamba2-780m --smoke
+   --batch 8 --quantize` as a subprocess: exit 0, a JSON report, and at
+   least one label (ssm-BCdt) on the kernel;
+27. prints one JSON line of kernel numbers, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Phase 9 also holds the graphs: the serve's steps replay CUDA graphs
@@ -142,20 +183,25 @@ launch counts).
 
 Each kernel's launch count in that line comes from its own main path
 (for sweep_eval, which has two entries: the default-grid campaign and
-the adaptive engine run; for int8_gemm, which has eight entries, each
+the adaptive engine run; for int8_gemm, which has fifteen entries, each
 with its design and weight format: the gated INT8 serve, the INT8
 prefill forward, the 197 calls of one decode step through
 `ops.int8_matmul(dataflow="ws")`, the same three with FP8 weights, the
-gated INT4 serve, and the continuous engine's all-at-once run; the
-prefill forward for flash_attention; one call of the public wrapper for
-decode_attention), counted from 0 just before that path ran.
+gated INT4 serve, the continuous engine's all-at-once run, and for
+qwen2-moe-a2.7b and mamba2-780m each the serve, the prefill forward and
+the engine, and reduced jamba's serve and engine; the qwen2-7b and the
+qwen2-moe-a2.7b prefill forwards for flash_attention; one call of the
+public wrapper for decode_attention), counted from 0 just before that
+path ran.
 
 Any failed phase raises and exits non-zero; so does a machine with no
 CUDA device or a directory without the port.
 """
 from __future__ import annotations
 
+import contextlib
 import csv
+import dataclasses
 import importlib
 import json
 import math
@@ -430,12 +476,62 @@ def changed(wrapper, before: dict) -> str:
                     if c != before[d])
 
 
-def check_flash(torch, ops, fa_mod) -> list[dict]:
-    """ops.flash_attention vs the plain version on every FLASH_CASES, in
-    both dtypes, element by element (ATTN_TOL_DOC)."""
+def time_flash(torch, ops, fa_mod, H: int, KV: int, dh: int) -> dict:
+    """The flash kernel, its plain version and the yardstick
+    (scaled_dot_product_attention, which the port never calls) at (1,
+    PREFILL, H/KV, dh) bf16 causal, one prefill layer: CUDA-event times
+    (`ms`), profiler device times (`device_ms`), the bound and a line to
+    print."""
+    import torch.nn.functional as F
+    q, k, v = attn_inputs(torch, [(1, PREFILL, H, dh), (1, PREFILL, KV, dh),
+                                  (1, PREFILL, KV, dh)], torch.bfloat16, 7)
+    qf, kf, vf = ops.fold(q), ops.fold(k), ops.fold(v)
+    out = {"ms": time_ms(torch, lambda i: fa_mod.flash_attention(qf, kf, vf),
+                         1),
+           "device_ms": device_ms(
+               torch, lambda i: fa_mod.flash_attention(qf, kf, vf), 1),
+           "plain_ms": time_ms(
+               torch, lambda i: fa_mod.flash_attention_ref(qf, kf, vf), 1)}
+    q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                          enable_gqa=True)
+    sdpa_err = (sdpa.transpose(1, 2).float()
+                - ops.flash_attention(q, k, v).float()).abs().max().item()
+    out["library_ms"] = time_ms(
+        torch, lambda i: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True), 1)
+    out["library_device_ms"] = device_ms(
+        torch, lambda i: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True), 1)
+    pairs = int(fa_mod._mask(PREFILL, PREFILL, True, 0, "cpu").sum())
+    out["ops_ms"] = 1e3 * 4 * dh * pairs * H / BF16_OPS_PER_S
+    out["bytes_ms"] = 1e3 * 2 * (qf.numel() * 2 + kf.numel() * 2) \
+        / HBM_BYTES_PER_S
+    out["bound_ms"] = max(out["ops_ms"], out["bytes_ms"])
+    out["line"] = (
+        f"kernel {out['ms']!r} ms, plain {out['plain_ms']!r} ms, library_ms "
+        f"{out['library_ms']!r} ms (scaled_dot_product_attention, "
+        f"enable_gqa; max|d| vs the kernel {sdpa_err!r}); bound "
+        f"{out['bound_ms']!r} ms = max(operations: "
+        f"{4 * dh * pairs * H / 1e9:.2f} GFLOP over {pairs} unmasked pairs "
+        f"per head at 989 TFLOP/s = {out['ops_ms']!r} ms, bytes: "
+        f"{out['bytes_ms']!r} ms), {out['bound_ms'] / out['ms']:.1%} of "
+        f"bound (CUDA-event times); profiler device times: kernel "
+        f"{out['device_ms']!r} ms ({out['bound_ms'] / out['device_ms']:.1%} "
+        f"of bound), library {out['library_device_ms']!r} ms; design "
+        f"{fa_mod.design(qf.dtype)}")
+    del q, k, v, qf, kf, vf, q4, k4, v4, sdpa
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_flash(torch, ops, fa_mod, cases=None) -> list[dict]:
+    """ops.flash_attention vs the plain version on every case of `cases`
+    (default FLASH_CASES), in both dtypes, element by element
+    (ATTN_TOL_DOC)."""
     rows = []
     for (b, sq, sk, h, kv, d, window), dt in (
-            (c, dt) for c in FLASH_CASES for dt in ATTN_DTYPES):
+            (c, dt) for c in (cases or FLASH_CASES) for dt in ATTN_DTYPES):
         q, k, v = attn_inputs(torch, [(b, sq, h, d), (b, sk, kv, d),
                                       (b, sk, kv, d)], getattr(torch, dt),
                               seed=sq + sk + h + d + window)
@@ -543,6 +639,757 @@ def ops_per_row(torch, sweep_eval_ref, rows) -> int:
     return Count.ops
 
 
+def graphed_vs_eager(torch, sess, prompt, n_fill: int) -> list:
+    """Both steps of a session, graphed, against the eager function on a
+    clone of the cache after `n_fill` prompt tokens: logits and every
+    cache entry bit for bit.  Returns [(step, same)]."""
+    from repro_torch.models import clone_cache
+    from repro_torch.serving import make_serve_step
+    sess.reset()
+    sess.prefill(prompt[:, :n_fill])
+    results = []
+    for name, fn, table in (("prefill", sess.core.prefill_step,
+                             sess.prefill_plan_table),
+                            ("decode", sess.core.step, sess.plan_table)):
+        copy = clone_cache(sess.cache)
+        tok = prompt[:, n_fill:n_fill + 1]
+        got, _ = fn(sess.cache, tok, sess.pos)
+        with torch.inference_mode():
+            want, copy = make_serve_step(sess.cfg, sess.rc, table)(
+                sess.params, copy, tok, sess.pos)
+        results.append((name, torch.equal(got, want) and all(
+            torch.equal(a[key], b[key]) for a, b in zip(sess.cache, copy)
+            for key in a)))
+    sess.reset()
+    return results
+
+
+def trace_steps(torch, sess, prompt, what: str, card: str,
+                n_traced: int = 4):
+    """Where the time of a gated step goes on the device: n_traced
+    prefill-phase steps of `sess` under the profiler, with design B's
+    share.  Returns device busy ms per step (None: not measured)."""
+    sess.reset()
+    prof = profile_window(torch, lambda: sess.prefill(prompt[:, :n_traced]))
+    sess.reset()
+    if prof["busy_ms"] <= 0:
+        print(f"traced {what} steps: the profiler recorded no device time "
+              f"(device busy share not measured)")
+        return None
+    b_us = sum(us for name, us in prof["kernels"] if "int8_gemm_ws" in name)
+    print(f"traced {what} steps ({n_traced}, profiler on): wall "
+          f"{prof['wall_ms'] / n_traced!r} ms/step, device busy "
+          f"{prof['busy_ms'] / n_traced!r} ms/step, device idle share "
+          f"{1 - prof['busy_ms'] / prof['wall_ms']!r}; design B "
+          f"(int8_gemm_ws_kernel + its reduce) {b_us / 1e3 / n_traced!r} "
+          f"ms/step ({b_us / 1e3 / prof['busy_ms']:.1%} of busy) [{card}]")
+    for name, us in prof["kernels"][:10]:
+        print(f"  device {us / 1e3 / n_traced!r} ms/step "
+              f"({us / 1e3 / prof['busy_ms']:.1%}): {name[:90]}")
+    return prof["busy_ms"] / n_traced
+
+
+# --- the moe, ssm and hybrid families (phases 18-26) --------------------------
+
+MOE_ARCH = "qwen2-moe-a2.7b"         # full width and depth
+SSM_ARCH = "mamba2-780m"             # full width and depth
+HYBRID_ARCH = "jamba-1.5-large-398b"  # at reduced(...) only: see phase 25
+# qwen2-moe-a2.7b's prefill attention: 16/16 heads (group size 1), d 128
+FAM_FLASH_CASES = [(1, PREFILL, PREFILL, 16, 16, 128, 0)]
+# engines of phases 21 and 24: slots, block size, length cap, requests
+FAM_SLOTS, FAM_BLOCK, FAM_MAX_LEN, FAM_REQUESTS = 8, 16, 65, 16
+SSM_CHECK = 512          # mamba2 positions held decode-vs-forward (2 chunks)
+FREED_GIB = 4.0          # allocated before the families' weights, at most
+
+
+def projection_calls(cfg, period_slots, n_periods) -> list[tuple]:
+    """(label, K, N, calls per decode step) of the 2-D projections of one
+    step: every call the GEMM kernel can take (the MoE experts are
+    stacked (E, K, N) leaves and never take it)."""
+    d, L = cfg.d_model, n_periods(cfg)
+    nh, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
+    out = []
+    for slot in period_slots(cfg):
+        if slot.mixer == "attn":
+            out += [("Wq", d, nh * dh, L), ("Wk", d, kvh * dh, L),
+                    ("Wv", d, kvh * dh, L), ("Wo", nh * dh, d, L)]
+        else:
+            s = cfg.ssm
+            di, g = s.d_inner(d), s.n_groups * s.d_state
+            out += [("ssm-z", d, di, L), ("ssm-x", d, di, L),
+                    ("ssm-BCdt", d, g, 2 * L),
+                    ("ssm-BCdt", d, s.n_ssm_heads(d), L),
+                    ("ssm-out", di, d, L)]
+        if slot.ffn == "dense":
+            out += [("mlp-gate", d, cfg.d_ff, L), ("mlp-up", d, cfg.d_ff, L),
+                    ("mlp-down", cfg.d_ff, d, L)]
+        elif slot.ffn == "moe" and cfg.moe.n_shared_experts:
+            sf = cfg.moe.shared_d_ff
+            out += [("shared-gate", d, sf, L), ("shared-up", d, sf, L),
+                    ("shared-down", sf, d, L)]
+    out.append(("lm_head", d, cfg.vocab, 1))
+    return out
+
+
+def f32_tree(tree):
+    """A parameter tree with every floating-point tensor in f32 (int8
+    codes stay as they are)."""
+    if isinstance(tree, dict):
+        return {k: f32_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [f32_tree(v) for v in tree]
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def gated_calls(calls, table) -> list[tuple]:
+    """The entries of `calls` whose label `table` gates onto the kernel."""
+    return [c for c in calls if table.use_cim(c[0])]
+
+
+def per_path(rows: dict, calls, m: int) -> dict:
+    """The kernel's numbers summed over `calls` (label, K, N, count) at M =
+    m, each shape's row times its count, as per_call_sum does for the
+    qwen2-7b paths."""
+    out = {key: sum(cnt * rows[(m, k, n)][key] for _, k, n, cnt in calls)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                       "bytes_ms", "ops_ms", "device_ms",
+                       "library_device_ms")}
+    out["design"] = "+".join(sorted({rows[(m, k, n)]["design"]
+                                     for _, k, n, _ in calls}))
+    out["max_abs_err"] = max((rows[(m, k, n)]["max_abs_err"]
+                              for _, k, n, _ in calls), default=0.0)
+    return out
+
+
+def families(torch, card: str) -> list[dict]:
+    """Phases 18-26: the moe, ssm and hybrid families on the card (see the
+    module docstring).  Returns their entries of the kernels line."""
+    import gc
+
+    from repro_torch.configs import ARCHS, RunConfig, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.int8_gemm import (int8_gemm, int8_gemm_ref,
+                                               plan_gemm)
+    from repro_torch.models import (clone_cache, decode_step, init,
+                                    init_cache, n_periods, period_slots,
+                                    route_trace)
+    from repro_torch.models.layers import CIM_ROUTE
+    from repro_torch.quant import dequant_contract
+    from repro_torch.serving import (ContinuousBatchingEngine, DecodeCore,
+                                     ServeSession, make_prefill,
+                                     make_serve_step, synthetic_requests)
+    fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
+    flash = fa_mod.flash_attention
+    rc = RunConfig()
+    steps, max_len = PROMPT + NEW, PROMPT + NEW + 1
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+
+    free()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    print(f"families: {held!r} GiB allocated before their weights are drawn "
+          f"(the qwen2-7b weights and graph pools freed; at most "
+          f"{FREED_GIB})")
+    if held > FREED_GIB:
+        raise RuntimeError(f"{held} GiB still allocated before the families")
+
+    # --- 18. the kernels at the families' shapes ----------------------------
+    moe_cfg, ssm_cfg = ARCHS[MOE_ARCH], ARCHS[SSM_ARCH]
+    hyb_cfg = reduced(ARCHS[HYBRID_ARCH])
+    calls = {a: projection_calls(c, period_slots, n_periods)
+             for a, c in ((MOE_ARCH, moe_cfg), (SSM_ARCH, ssm_cfg),
+                          (HYBRID_ARCH, hyb_cfg))}
+    cases = sorted({(m, k, n) for a in (MOE_ARCH, SSM_ARCH)
+                    for m in (BATCH, PREFILL) for _, k, n, _ in calls[a]})
+    cases += sorted({(BATCH, k, n) for _, k, n, _ in calls[HYBRID_ARCH]})
+    rows = {}
+    for m, k, n in cases:
+        r = check_kernel(torch, int8_gemm, int8_gemm_ref, m, k, n,
+                         torch.bfloat16)
+        want = plan_gemm(m, n, k).design
+        r["ok"] = r["ok"] and r["design"] == want
+        rows[(m, k, n)] = r
+        print(f"int8_gemm (families) M={m} K={k} N={n} bf16 design "
+              f"{r['design']} (planned {want}): max|d|={r['max_abs_err']!r} "
+              f"max|d|/max|ref|={r['max_rel_err']!r} (tol {TOL}), bf16 "
+              f"output == f32 output cast {r['out_cast_equal']} "
+              f"{'ok' if r['ok'] else 'FAIL'} | kernel {r['ms']!r} ms, bound "
+              f"{r['bound_ms']!r} ms ({r['bound_ms'] / r['ms']:.1%}), plain "
+              f"{r['plain_ms']!r} ms, library_ms {r['library_ms']!r} ms "
+              f"(CUDA events); device: kernel {r['device_ms']!r} ms, "
+              f"library {r['library_device_ms']!r} ms [{card}]")
+    bad = [r for r in rows.values() if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"int8_gemm disagrees with its plain version at "
+                           f"the families' shapes: {bad}")
+    frows = check_flash(torch, ops, fa_mod, FAM_FLASH_CASES)
+    for r in frows:
+        print(f"flash_attention (families) (b, sq, sk, H, KV, d, window, "
+              f"dtype) = {r['case']}, design {r['design']}: max|d|="
+              f"{r['max_abs_err']!r}, max |d|/bound={r['worst']!r} "
+              f"{'ok' if r['ok'] else 'FAIL'}")
+    flash_design = {"bfloat16": "wgmma", "float32": "fma"}
+    if not all(r["ok"] and r["design"] == flash_design[r["case"][-1]]
+               for r in frows):
+        raise RuntimeError(f"flash_attention at 16/16 heads disagrees with "
+                           f"its plain version ({ATTN_TOL_DOC}): {frows}")
+    _, _, _, fh, fkv, fdh, _ = FAM_FLASH_CASES[0]
+    ft = time_flash(torch, ops, fa_mod, fh, fkv, fdh)
+    print(f"flash_attention timing at (1, {PREFILL}, {fh}/{fkv}, {fdh}) bf16 "
+          f"causal ({MOE_ARCH}'s prefill layer): {ft['line']} [{card}]")
+
+    def check_routes(sess, cfg_calls):
+        """A 2-D label runs the kernel exactly when the decode table gates
+        it; the stacked experts always contract on the dequant route."""
+        report = sess.route_report()
+        two_d = {c[0] for c in cfg_calls}
+        for label, r in report.items():
+            print(f"  route {label}: {r['route']} ({r['what']} @ "
+                  f"{r['where']}, use_cim {r['use_cim']})")
+            want_cim = label in two_d and r["use_cim"]
+            if (r["route"] == CIM_ROUTE) != want_cim:
+                raise RuntimeError(f"{label} runs {r['route']}")
+        return report
+
+    @contextlib.contextmanager
+    def pinned_routing(ids: list):
+        """Pin the MoE routing of two eager runs: while `ids` is empty,
+        torch.topk (called, on these paths, by the MoE router alone)
+        records the expert ids it picks into `ids`; after that it returns
+        them in the recorded order, with the gate values gathered from this
+        run's own router probabilities.  With random weights the router's
+        top-k sits on near-ties that bf16 roundings of two routes fall on
+        either side of; pinned, two runs can be held element by element."""
+        real, replay = torch.topk, (iter(list(ids)) if ids else None)
+
+        def topk(probs, k, *args, **kwargs):
+            if replay is None:
+                out = real(probs, k, *args, **kwargs)
+                ids.append(out.indices)
+                return out
+            idx = next(replay)
+            return probs.gather(-1, idx), idx
+        torch.topk = topk
+        try:
+            yield
+        finally:
+            torch.topk = real
+
+    def serve(cfg, cfg_calls, what):
+        """Phases 19 and 22: the INT8-gated fixed-batch serve, graphed, with
+        its checks.  Returns the session and its numbers."""
+        t0 = time.perf_counter()
+        params = init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                      device="cuda")
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sess = ServeSession(cfg, rc, params, max_len=max_len, batch=BATCH,
+                            quantize=True)
+        del params
+        free()
+        print(f"{what} serve: {cfg.name} ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}), seed 0, init {t_init:.2f} s, plan + "
+              f"quantize {time.perf_counter() - t0:.2f} s, weights "
+              f"{torch.cuda.memory_allocated() / 2**30!r} GiB on the card; "
+              f"decode plan {sess.plan_table.digest}, prefill plan "
+              f"{sess.prefill_plan_table.digest}")
+        check_routes(sess, cfg_calls)
+        n_dec = gated_calls(cfg_calls, sess.plan_table)
+        n_pre = gated_calls(cfg_calls, sess.prefill_plan_table)
+        expected = (PROMPT * sum(c[3] for c in n_pre)
+                    + NEW * sum(c[3] for c in n_dec))
+        prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT),
+                               generator=torch.Generator().manual_seed(1)
+                               ).to("cuda")
+        sess.generate(prompt[:, :2], 1)     # warm-up and captures
+        sess.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(int8_gemm)
+        t0 = time.perf_counter()
+        tokens = sess.generate(prompt, NEW)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = int8_gemm.launches
+        by_design = dict(int8_gemm.launches_by_design)
+        out = {"launches": launches, "ms_per_step": 1e3 * elapsed / steps,
+               "tokens_per_s": BATCH * NEW / elapsed,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "decode_calls": n_dec}
+        print(f"{what} serve gated: {steps} steps (prefill {PROMPT} + decode "
+              f"{NEW}) at batch {BATCH} in {elapsed!r} s: "
+              f"{out['ms_per_step']!r} ms/step, {out['tokens_per_s']!r} new "
+              f"tokens/s; peak memory {out['peak_gib']!r} GiB; int8_gemm "
+              f"launches {launches} (expected {PROMPT} x "
+              f"{sum(c[3] for c in n_pre)} + {NEW} x "
+              f"{sum(c[3] for c in n_dec)} = {expected}), by design "
+              f"{by_design}; decode_executables {sess.decode_executables}, "
+              f"prefill_executables {sess.prefill_executables} [{card}]")
+        if launches != expected or by_design["B"] != expected:
+            raise RuntimeError(f"{what} serve launched int8_gemm {by_design}, "
+                               f"expected {expected} on design B")
+        if sess.decode_executables != 1 or sess.prefill_executables != 1:
+            raise RuntimeError(f"{what} serve captured its steps more than "
+                               f"once")
+        if tokens.shape != (BATCH, NEW) or not bool(
+                ((tokens >= 0) & (tokens < cfg.vocab)).all()):
+            raise RuntimeError(f"bad token stream {tokens.shape}")
+        bitwise = graphed_vs_eager(torch, sess, prompt, 5)
+        print(f"{what} graphed steps vs the eager function on a clone of the "
+              f"cache (logits and every cache entry bit for bit): {bitwise}")
+        if not all(same for _, same in bitwise):
+            raise RuntimeError(f"{what}: a replayed step is not the eager "
+                               f"step")
+        ungated = ServeSession(cfg, rc, sess.params, max_len=max_len,
+                               batch=BATCH, quantize=True, gated=False)
+        if any(r["route"] == CIM_ROUTE
+               for r in ungated.route_report().values()):
+            raise RuntimeError("the ungated session routes a label to the "
+                               "kernel")
+        int8_gemm.launches = 0
+        t0 = time.perf_counter()
+        ungated_tokens = ungated.generate(prompt, NEW)
+        torch.cuda.synchronize()
+        t_ungated = time.perf_counter() - t0
+        if int8_gemm.launches != 0:
+            raise RuntimeError(f"the ungated session launched int8_gemm "
+                               f"{int8_gemm.launches} times")
+        sess.reset()
+        ungated.reset()
+        lg = sess.prefill(prompt[:, :1]).float()
+        lu = ungated.prefill(prompt[:, :1]).float()
+        sess.reset()
+        lane = (lg - lu).abs().reshape(BATCH, -1).amax(-1)
+        # the first step eager (bit for bit the graphed one) on both
+        # routes and in f32 on the same quantized weights (the dequant
+        # route with every float leaf and activation in f32): each bf16
+        # route is held to the f32 step, the MoE routing of the ungated and
+        # f32 runs pinned to the gated run's
+        f32cfg = dataclasses.replace(cfg, compute_dtype="float32")
+        ids, runs = [], []
+        for c, p_, table in ((cfg, sess.params, sess.prefill_plan_table),
+                             (cfg, sess.params, ungated.prefill_plan_table),
+                             (f32cfg, f32_tree(sess.params),
+                              ungated.prefill_plan_table)):
+            cache = init_cache(c, rc, BATCH, max_len, device="cuda")
+            with pinned_routing(ids), torch.inference_mode():
+                runs.append(make_serve_step(c, rc, table)(
+                    p_, cache, prompt[:, :1], 0)[0].float())
+            del cache
+        ref_max = runs[2].abs().max().item()
+        diffs = [(r - runs[2]).abs().max().item() for r in runs[:2]]
+        # the kernel route must be as close to the f32 step as LOGIT_TOL,
+        # or as close as the plain route (torch ops alone) gets: a deep
+        # bf16 model may sit farther from f32 than LOGIT_TOL on either
+        bound = max(LOGIT_TOL * ref_max, diffs[1])
+        agree = int((runs[0].argmax(-1) == runs[1].argmax(-1)).sum())
+        print(f"{what} serve ungated: {1e3 * t_ungated / steps!r} ms/step, 0 "
+              f"int8_gemm launches, greedy streams equal on "
+              f"{int((tokens == ungated_tokens).all(1).sum())} of {BATCH} "
+              f"lanes; first-step logits, gated vs ungated as served: max|d| "
+              f"per lane {[round(v, 5) for v in lane.tolist()]}; each route "
+              f"against the f32 step (MoE routing pinned): gated max|d|="
+              f"{diffs[0]!r}, ungated {diffs[1]!r}, gated vs ungated "
+              f"{(runs[0] - runs[1]).abs().max().item()!r}, max|f32|="
+              f"{ref_max!r}: the gated route within max({LOGIT_TOL}·max|f32|"
+              f", the ungated route's max|d|) = {bound!r}; greedy tokens "
+              f"agree on {agree} of {BATCH} (need {MIN_TOKEN_AGREEMENT})")
+        if not all(bool(torch.isfinite(t).all()) for t in (lg, lu, *runs)) \
+                or diffs[0] > bound or agree < MIN_TOKEN_AGREEMENT:
+            raise RuntimeError(f"{what}: the first-step logits of the two "
+                               f"routes disagree")
+        del ungated
+        out["busy_ms_per_step"] = trace_steps(torch, sess, prompt,
+                                              f"{what} gated", card)
+        return sess, out
+
+    def prefill_forward(cfg, cfg_calls, params, what, attn_layers):
+        """Phases 20 and 23: the (1, PREFILL) forward under the prefill
+        table of a core planned at batch 8 and length PREFILL, with
+        attn_impl="pallas"; launches held against the route trace and
+        plan_gemm's designs.  Returns the core, the prompt, the logits
+        and the numbers."""
+        prc = RunConfig(attn_impl="pallas")
+        core = DecodeCore(cfg, prc, params, quantize=True, plan_batch=BATCH,
+                          plan_max_len=PREFILL, device="cuda")
+        ptable = core.prefill_plan_table
+        run = make_prefill(cfg, prc, ptable)
+        prompt = torch.randint(0, cfg.vocab, (1, PREFILL),
+                               generator=torch.Generator().manual_seed(2)
+                               ).to("cuda")
+        run(core.params, prompt)                         # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(flash)
+        reset_counts(int8_gemm)
+        with route_trace() as records:
+            t0 = time.perf_counter()
+            logits = run(core.params, prompt)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out = {"launches": int8_gemm.launches,
+               "by_design": dict(int8_gemm.launches_by_design),
+               "flash": flash.launches,
+               "flash_by_design": dict(flash.launches_by_design),
+               "wall_s": wall,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "calls": gated_calls(cfg_calls, ptable)}
+        want = {d: 0 for d in out["by_design"]}
+        for _, k, n, cnt in out["calls"]:
+            want[plan_gemm(PREFILL, n, k).design] += cnt
+        n_cim = sum(r["route"] == CIM_ROUTE for r in records)
+        print(f"{what} prefill forward: 1 x {PREFILL} tokens in {wall!r} s "
+              f"({PREFILL / wall!r} prefill tokens/s), peak memory "
+              f"{out['peak_gib']!r} GiB; int8_gemm launches "
+              f"{out['launches']} by design {out['by_design']} (expected "
+              f"{want}; {n_cim} kernel routes traced), flash_attention "
+              f"launches {out['flash']} by design {out['flash_by_design']} "
+              f"(expected {attn_layers}) [{card}]")
+        if out["by_design"] != want or n_cim != out["launches"]:
+            raise RuntimeError(f"{what} prefill launched int8_gemm "
+                               f"{out['by_design']}, expected {want}")
+        if out["flash"] != attn_layers or (
+                out["flash_by_design"]["wgmma"] != attn_layers):
+            raise RuntimeError(f"{what} prefill launched flash_attention "
+                               f"{out['flash_by_design']}")
+        if logits.shape != (1, PREFILL, cfg.vocab) or not bool(
+                torch.isfinite(logits).all()):
+            raise RuntimeError(f"bad prefill logits {tuple(logits.shape)}")
+        prof = profile_window(torch, lambda: run(core.params, prompt))
+        if prof["busy_ms"] > 0:
+            a_us = sum(us for name, us in prof["kernels"]
+                       if "int8_gemm" in name)
+            f_us = sum(us for name, us in prof["kernels"]
+                       if "flash_wgmma_kernel" in name)
+            out["busy_ms"] = prof["busy_ms"]
+            print(f"traced {what} prefill forward (profiler on): wall "
+                  f"{prof['wall_ms']!r} ms, device busy {prof['busy_ms']!r} "
+                  f"ms, device idle share "
+                  f"{1 - prof['busy_ms'] / prof['wall_ms']!r}; int8_gemm "
+                  f"{a_us / 1e3!r} ms ({a_us / 1e3 / prof['busy_ms']:.1%}), "
+                  f"flash_attention {f_us / 1e3!r} ms "
+                  f"({f_us / 1e3 / prof['busy_ms']:.1%}) [{card}]")
+            for name, us in prof["kernels"][:10]:
+                print(f"  device {us / 1e3!r} ms "
+                      f"({us / 1e3 / prof['busy_ms']:.1%}): {name[:90]}")
+        else:
+            print(f"traced {what} prefill forward: the profiler recorded no "
+                  f"device time (device busy share not measured)")
+        return core, prompt, logits, out
+
+    def engine(core, cfg, cfg_calls, what, check_reset=False):
+        """Phases 21, 24 and 25: FAM_REQUESTS requests all at once through
+        the continuous engine (FAM_SLOTS slots), graphed; launches against
+        the phase tables' gated calls, one replayed step bit for bit
+        against the eager decode_step, and (check_reset) a second run of
+        the same requests in which every joining slot's state and conv
+        carry read 0 after their reset, with the same streams."""
+        eng = ContinuousBatchingEngine(core, n_slots=FAM_SLOTS,
+                                       max_len=FAM_MAX_LEN,
+                                       block_size=FAM_BLOCK)
+        eng.run(synthetic_requests(cfg, 2, seed=1, prompt_len=(2, 2),
+                                   new_tokens=(2, 2)), None)   # captures
+        caps0 = core.batch_decode_executables
+        phase0, steps0 = dict(eng.phase_steps), eng.steps
+        reqs = synthetic_requests(cfg, FAM_REQUESTS, seed=0,
+                                  prompt_len=(8, 32), new_tokens=(8, 32))
+        reset_counts(int8_gemm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(reqs, None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        done = eng.completed[-FAM_REQUESTS:]
+        n_steps = eng.steps - steps0
+        ph = {k: eng.phase_steps[k] - phase0[k] for k in phase0}
+        tables = {"prefill": core.prefill_plan_table,
+                  "decode": core.plan_table}
+        expected = sum(ph[k] * sum(c[3] for c in gated_calls(cfg_calls, t))
+                       for k, t in tables.items())
+        new_tokens = sum(len(r.tokens) for r in done)
+        out = {"launches": int8_gemm.launches, "steps": n_steps,
+               "wall_s": wall,
+               "tokens_per_s": new_tokens / max(r.t_done for r in done),
+               "ms_per_step": 1e3 * wall / max(1, n_steps)}
+        print(f"{what} engine, {FAM_REQUESTS} requests all at once on "
+              f"{FAM_SLOTS} slots: {len(done)} done, {n_steps} steps "
+              f"(phase steps {ph}) in {wall!r} s, {out['ms_per_step']!r} "
+              f"ms/step, {out['tokens_per_s']!r} new tokens/s; int8_gemm "
+              f"launches {out['launches']} (expected {expected}), by design "
+              f"{dict(int8_gemm.launches_by_design)}; "
+              f"batch_decode_executables {core.batch_decode_executables} "
+              f"(new {core.batch_decode_executables - caps0}) [{card}]")
+        if len(done) != FAM_REQUESTS or any(
+                len(r.tokens) != r.max_new_tokens
+                or not all(0 <= int(t) < cfg.vocab for t in r.tokens)
+                for r in done):
+            raise RuntimeError(f"{what} engine did not complete every "
+                               f"request with its max_new_tokens")
+        if out["launches"] != expected or (
+                core.batch_decode_executables != caps0):
+            raise RuntimeError(f"{what} engine launched int8_gemm "
+                               f"{out['launches']} times, expected "
+                               f"{expected}, or captured again")
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        tok = torch.randint(0, cfg.vocab, (FAM_SLOTS, 1), generator=gen,
+                            device="cuda")
+        pos = torch.tensor([0, 5, 17, 31, 40, 63, 2, 50], dtype=torch.int32,
+                           device="cuda")
+        active = torch.tensor([1, 1, 1, 0, 1, 1, 0, 1], dtype=torch.bool,
+                              device="cuda")
+        blocks = torch.arange(eng.block_tables.size, dtype=torch.int32,
+                              device="cuda").view(FAM_SLOTS, -1)
+        copy = clone_cache(eng.cache)
+        got, _ = core.batch_step_for(core.plan_table)(eng.cache, tok, pos,
+                                                      active, blocks)
+        with torch.inference_mode():
+            want, copy = decode_step(core.params, copy, tok, pos, cfg,
+                                     core.rc, plan=core.plan_table,
+                                     active=active, block_tables=blocks)
+        same = torch.equal(got, want) and all(
+            torch.equal(a[key], b[key]) for a, b in zip(eng.cache, copy)
+            for key in a)
+        print(f"{what} engine: one step (replayed graph) vs the eager "
+              f"decode_step(..., active=, block_tables=) on a clone of the "
+              f"cache: logits and every cache entry bit for bit {same}")
+        if not same:
+            raise RuntimeError(f"{what}: the engine's graphed step is not the "
+                               f"eager step")
+        del copy, got, want
+        if check_reset:
+            first = {r.rid: [int(t) for t in r.tokens] for r in done}
+            zeroed = []
+            reset = eng._reset_slot_state
+
+            def checked(i):
+                reset(i)
+                zeroed.append(max(
+                    float(e[key][:, i].abs().max())
+                    for e in eng.cache if "state" in e
+                    for key in ("state", "conv")))
+            eng._reset_slot_state = checked
+            eng.run(synthetic_requests(cfg, FAM_REQUESTS, seed=0,
+                                       prompt_len=(8, 32),
+                                       new_tokens=(8, 32)), None)
+            del eng._reset_slot_state
+            again = {r.rid: [int(t) for t in r.tokens]
+                     for r in eng.completed[-FAM_REQUESTS:]}
+            print(f"{what} engine, the same requests again: {len(zeroed)} "
+                  f"slot resets, the largest |state| or |conv| of a joining "
+                  f"slot after its reset {max(zeroed)!r}; streams equal the "
+                  f"first run's on {sum(again[r] == first[r] for r in first)}"
+                  f" of {FAM_REQUESTS}")
+            if len(zeroed) < FAM_REQUESTS or max(zeroed) != 0.0 or (
+                    again != first):
+                raise RuntimeError(f"{what}: a joining slot kept its state")
+        del eng
+        return out
+
+    # --- 19.-21. qwen2-moe-a2.7b: serve, prefill forward, engine ---------------
+    moe_sess, moe_serve = serve(moe_cfg, calls[MOE_ARCH], MOE_ARCH)
+    x = torch.randn((BATCH, moe_cfg.d_model), generator=torch.Generator(
+        device="cuda").manual_seed(4), device="cuda").to(torch.bfloat16)
+    moe0 = {k: {"q": v["q"][0], "scale": v["scale"][0]}
+            for k, v in moe_sess.params["slots"][0]["moe"].items()
+            if k in ("w_gate", "w_up", "w_down")}
+
+    def experts():
+        g = dequant_contract(x, moe0["w_gate"]["q"], moe0["w_gate"]["scale"],
+                             "td,edf->etf")
+        u = dequant_contract(x, moe0["w_up"]["q"], moe0["w_up"]["scale"],
+                             "td,edf->etf")
+        return dequant_contract(g * u, moe0["w_down"]["q"],
+                                moe0["w_down"]["scale"], "etf,efd->etd")
+    L_moe = n_periods(moe_cfg)
+    ex_ms = L_moe * time_ms(torch, lambda i: experts(), 1)
+    ex_dev = L_moe * device_ms(torch, lambda i: experts(), 1)
+    ex_bytes = sum(moe0[w]["q"].numel() for w in moe0) * L_moe
+    print(f"{MOE_ARCH} expert contractions of one decode step (the T <= C "
+          f"fast path's three dequant einsums per layer, timed alone on "
+          f"layer 0, x {L_moe} layers): {ex_ms!r} ms by CUDA events, "
+          f"{ex_dev!r} ms device time; they read {ex_bytes / 1e9!r} GB of "
+          f"int8 experts a step, {1e3 * ex_bytes / HBM_BYTES_PER_S!r} ms at "
+          f"the HBM rate; share of the traced step's device busy "
+          f"{ex_dev / moe_serve['busy_ms_per_step'] if moe_serve['busy_ms_per_step'] else float('nan'):.1%} [{card}]")
+    del moe0, x
+    moe_core, prompt_, lp, moe_pre = prefill_forward(
+        moe_cfg, calls[MOE_ARCH], moe_sess.params, MOE_ARCH,
+        n_periods(moe_cfg))
+    table = moe_core.prefill_plan_table
+    lr = make_prefill(moe_cfg, RunConfig(attn_impl="flash_jnp"), table)(
+        moe_core.params, prompt_)
+    free_agree = (lp.argmax(-1) == lr.argmax(-1)).float().mean().item()
+    free_diff = (lp.float() - lr.float()).abs().max().item()
+    ids = []
+    with pinned_routing(ids):                 # records the kernel run's
+        lp = make_prefill(moe_cfg, RunConfig(attn_impl="pallas"), table)(
+            moe_core.params, prompt_)
+    with pinned_routing(ids):                 # replays it
+        lr = make_prefill(moe_cfg, RunConfig(attn_impl="flash_jnp"), table)(
+            moe_core.params, prompt_)
+    diff = (lp.float() - lr.float()).abs().max().item()
+    ref_max = lr.float().abs().max().item()
+    print(f"{MOE_ARCH} prefill logits, flash kernel vs attn_impl='flash_jnp' "
+          f"(plain torch attention): as run, max|d|={free_diff!r} and greedy "
+          f"tokens agree at {free_agree:.2%} of {PREFILL} positions (the "
+          f"router's near-ties flip, and a flip moves later tokens' places "
+          f"in the capacity buffers); with the routing pinned to the kernel "
+          f"run's, max|d|={diff!r}, max|ref|={ref_max!r} (tol "
+          f"{LOGIT_TOL}·max|ref|), greedy tokens agree at "
+          f"{(lp.argmax(-1) == lr.argmax(-1)).float().mean().item():.2%}")
+    if diff > LOGIT_TOL * ref_max:
+        raise RuntimeError(f"{MOE_ARCH} prefill disagrees with flash_jnp")
+    del lp, lr, prompt_, moe_core
+    free()
+    eng_core = DecodeCore(moe_cfg, rc, moe_sess.params, quantize=True,
+                          plan_batch=FAM_SLOTS, plan_max_len=FAM_MAX_LEN,
+                          device="cuda")
+    moe_eng = engine(eng_core, moe_cfg, calls[MOE_ARCH], MOE_ARCH)
+    del eng_core, moe_sess
+    free()
+
+    # --- 22.-24. mamba2-780m: serve, prefill forward and its check, engine ---
+    ssm_sess, ssm_serve = serve(ssm_cfg, calls[SSM_ARCH], SSM_ARCH)
+    bcdt = [c for c in ssm_serve["decode_calls"] if c[0] == "ssm-BCdt"]
+    if sum(c[3] for c in bcdt) != 3 * n_periods(ssm_cfg):
+        raise RuntimeError(f"ssm-BCdt is not on the kernel 3 times a layer: "
+                           f"{bcdt}")
+    ssm_core, prompt_, logits, ssm_pre = prefill_forward(
+        ssm_cfg, calls[SSM_ARCH], ssm_sess.params, SSM_ARCH, 0)
+    cache1 = init_cache(ssm_cfg, rc, 1, PREFILL, device="cuda")
+    t0 = time.perf_counter()
+    step_logits = []
+    for t in range(SSM_CHECK):
+        lg, cache1 = ssm_core.prefill_step(cache1, prompt_[:, t:t + 1], t)
+        step_logits.append(lg[0, 0])
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter() - t0
+    step_logits = torch.stack(step_logits).float()
+    ref = logits[0, :SSM_CHECK].float()
+    diff = (step_logits - ref).abs().max().item()
+    ref_max = ref.abs().max().item()
+    agree = (step_logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    f32cfg = dataclasses.replace(ssm_cfg, compute_dtype="float32")
+    l32 = make_prefill(f32cfg, RunConfig(), ssm_core.prefill_plan_table
+                       .ungated())(f32_tree(ssm_core.params),
+                                   prompt_)[0, :SSM_CHECK].float()
+    d32 = [(x_ - l32).abs().max().item() for x_ in (step_logits, ref)]
+    print(f"{SSM_ARCH} decode vs forward (chunk {ssm_cfg.ssm.chunk}): the "
+          f"first {SSM_CHECK} positions of the prompt fed one by one "
+          f"through the graphed step (batch 1, the forward's prefill table, "
+          f"{1e3 * t_steps / SSM_CHECK!r} ms/step) against the forward's "
+          f"logits: max|d|={diff!r}, max|ref|={ref_max!r} (tol "
+          f"{LOGIT_TOL}·max|ref|); greedy tokens agree at {agree:.2%}; "
+          f"against the f32 forward on the same weights (max|f32|="
+          f"{l32.abs().max().item()!r}): steps max|d|={d32[0]!r}, bf16 "
+          f"forward {d32[1]!r}")
+    if diff > LOGIT_TOL * ref_max:
+        raise RuntimeError(f"{SSM_ARCH} decode steps disagree with the "
+                           f"forward")
+    del ssm_core, cache1, logits, step_logits, ref, prompt_
+    free()
+    eng_core = DecodeCore(ssm_cfg, rc, ssm_sess.params, quantize=True,
+                          plan_batch=FAM_SLOTS, plan_max_len=FAM_MAX_LEN,
+                          device="cuda")
+    ssm_eng = engine(eng_core, ssm_cfg, calls[SSM_ARCH], SSM_ARCH,
+                     check_reset=True)
+    del eng_core, ssm_sess
+    free()
+
+    # --- 25. the hybrid, reduced --------------------------------------------
+    what = f"{HYBRID_ARCH} (reduced: {hyb_cfg.name})"
+    hyb_sess, hyb_serve = serve(hyb_cfg, calls[HYBRID_ARCH], what)
+    hyb_eng = engine(hyb_sess.core, hyb_cfg, calls[HYBRID_ARCH], what,
+                     check_reset=True)
+    del hyb_sess
+    free()
+
+    # --- 26. the serving CLI on mamba2 ----------------------------------------
+    cli = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           SSM_ARCH, "--smoke", "--batch", "8", "--quantize"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cli, capture_output=True, text=True, cwd=HERE,
+                          env=env, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cli[1:])} exited {proc.returncode}:\n"
+                           f"{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout)
+    routes = report["gating"]["routes"]
+    print(f"CLI `python {' '.join(cli[1:])}`: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s, JSON report with keys "
+          f"{sorted(report)}; generated {report['generated_shape']}, routes "
+          f"{ {k: v['route'] for k, v in routes.items()} }, cim_routed "
+          f"{report['gating']['cim_routed']}")
+    if report["generated_shape"] != [8, 32] or (
+            report["gating"]["cim_routed"] < 1):
+        raise RuntimeError("the mamba2 serving CLI's report is wrong")
+
+    # --- the families' entries of the kernels line -------------------------
+    def entry(agg, launches, path, work):
+        return {"name": "int8_gemm", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/int8_gemm.cu",
+                "replaces": "src/repro/kernels/int8_gemm.py:33",
+                "launches": launches, "max_abs_err": agg["max_abs_err"],
+                "ms": agg["ms"], "plain_ms": agg["plain_ms"],
+                "bound_ms": agg["bound_ms"],
+                "bound_by": ("bytes" if agg["bytes_ms"] >= agg["ops_ms"]
+                             else "operations"),
+                "library_ms": agg["library_ms"],
+                "device_ms": agg["device_ms"],
+                "library_device_ms": agg["library_device_ms"],
+                "path": path, "design": agg["design"], "weights": "int8",
+                "work": work}
+    out = []
+    for arch, srv, pre, eng_ in ((MOE_ARCH, moe_serve, moe_pre, moe_eng),
+                                 (SSM_ARCH, ssm_serve, ssm_pre, ssm_eng)):
+        dec = per_path(rows, srv["decode_calls"], BATCH)
+        n = sum(c[3] for c in srv["decode_calls"])
+        out += [
+            entry(dec, srv["launches"], f"{arch} decode step",
+                  f"the {n} gated calls of one {arch} decode step at batch "
+                  f"{BATCH} (per-shape times x calls); launches counted over "
+                  f"the gated serve's {steps} steps"),
+            entry(per_path(rows, pre["calls"], PREFILL), pre["launches"],
+                  f"{arch} prefill forward",
+                  f"the gated calls of one {arch} prefill forward at M = "
+                  f"{PREFILL}; launches counted over one forward"),
+            entry(dec, eng_["launches"], f"{arch} continuous batching",
+                  f"the {n} gated calls of one {arch} decode step at M = "
+                  f"{FAM_SLOTS} slots; launches counted over the "
+                  f"{FAM_REQUESTS}-request all-at-once engine run "
+                  f"({eng_['steps']} steps)")]
+    hdec = per_path(rows, hyb_serve["decode_calls"], BATCH)
+    out.append(entry(hdec, hyb_serve["launches"] + hyb_eng["launches"],
+                     f"{HYBRID_ARCH} reduced serve and engine",
+                     f"the gated calls of one reduced {HYBRID_ARCH} decode "
+                     f"step at batch {BATCH}; launches counted over its "
+                     f"gated serve and its engine run"))
+    out.append({
+        "name": "flash_attention", "route": "cuda",
+        "path": f"{MOE_ARCH} prefill forward",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:21",
+        "launches": moe_pre["flash"],
+        "max_abs_err": max(r["max_abs_err"] for r in frows),
+        "ms": ft["ms"], "plain_ms": ft["plain_ms"],
+        "bound_ms": ft["bound_ms"],
+        "bound_by": ("bytes" if ft["bytes_ms"] >= ft["ops_ms"]
+                     else "operations"),
+        "library_ms": ft["library_ms"], "device_ms": ft["device_ms"],
+        "library_device_ms": ft["library_device_ms"],
+        "design": "+".join(d for d, c in moe_pre["flash_by_design"].items()
+                           if c),
+        "work": f"one call at (1, {PREFILL}, {fh}/{fkv}, {fdh}) bf16 causal: "
+                f"one layer of the {MOE_ARCH} prefill; launches counted over "
+                f"one forward"})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -563,7 +1410,8 @@ def main() -> int:
     from repro_torch.kernels import ops
     from repro_torch.kernels.int8_gemm import int8_gemm, int8_gemm_ref
     from repro_torch.launch import campaign as campaign_cli
-    from repro_torch.models import forward, init, n_periods, route_trace
+    from repro_torch.models import (forward, init, n_periods, period_slots,
+                                    route_trace)
     from repro_torch.models.layers import (CIM_FP8_ROUTE, CIM_INT4_ROUTE,
                                            CIM_ROUTE)
     from repro_torch.core import BucketLattice, PlanService
@@ -612,11 +1460,9 @@ def main() -> int:
     d, dh = cfg.d_model, cfg.head_dim()
     L = n_periods(cfg)
     # (K, N) -> calls per decode step (the projection GEMMs of one step)
-    step_shapes = {(d, cfg.n_heads * dh): 2 * L,          # Wq, Wo
-                   (d, cfg.n_kv_heads * dh): 2 * L,       # Wk, Wv
-                   (d, cfg.d_ff): 2 * L,                  # mlp-gate, mlp-up
-                   (cfg.d_ff, d): L,                      # mlp-down
-                   (d, cfg.vocab): 1}                     # lm_head
+    step_shapes = {}
+    for _, k, n, cnt in projection_calls(cfg, period_slots, n_periods):
+        step_shapes[(k, n)] = step_shapes.get((k, n), 0) + cnt
     calls_per_step = sum(step_shapes.values())
     cases = [(m, k, n, torch.bfloat16)
              for m in (BATCH, 32, 128, 129, PREFILL)
@@ -778,44 +1624,15 @@ def main() -> int:
         raise RuntimeError(f"flash_attention ran an unexpected design: "
                            f"{[(r['case'], r['design']) for r in frows]}")
     H, KV = cfg.n_heads, cfg.n_kv_heads
-    q, k, v = attn_inputs(torch, [(1, PREFILL, H, dh), (1, PREFILL, KV, dh),
-                                  (1, PREFILL, KV, dh)], torch.bfloat16, 7)
-    qf, kf, vf = ops.fold(q), ops.fold(k), ops.fold(v)
-    flash_ms = time_ms(torch, lambda i: fa_mod.flash_attention(qf, kf, vf), 1)
-    flash_dev_ms = device_ms(
-        torch, lambda i: fa_mod.flash_attention(qf, kf, vf), 1)
-    flash_plain_ms = time_ms(
-        torch, lambda i: fa_mod.flash_attention_ref(qf, kf, vf), 1)
-    q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))
-    sdpa = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
-                                          enable_gqa=True)
-    sdpa_err = (sdpa.transpose(1, 2).float()
-                - ops.flash_attention(q, k, v).float()).abs().max().item()
-    flash_lib_ms = time_ms(torch, lambda i: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True, enable_gqa=True), 1)
-    flash_lib_dev_ms = device_ms(
-        torch, lambda i: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, enable_gqa=True), 1)
-    pairs = int(fa_mod._mask(PREFILL, PREFILL, True, 0, "cpu").sum())
-    flash_ops_ms = 1e3 * 4 * dh * pairs * H / BF16_OPS_PER_S
-    flash_bytes_ms = 1e3 * 2 * (qf.numel() * 2 + kf.numel() * 2) \
-        / HBM_BYTES_PER_S
-    flash_bound_ms = max(flash_ops_ms, flash_bytes_ms)
+    ft = time_flash(torch, ops, fa_mod, H, KV, dh)
+    flash_ms, flash_dev_ms = ft["ms"], ft["device_ms"]
+    flash_plain_ms, flash_lib_ms = ft["plain_ms"], ft["library_ms"]
+    flash_lib_dev_ms = ft["library_device_ms"]
+    flash_ops_ms, flash_bytes_ms = ft["ops_ms"], ft["bytes_ms"]
+    flash_bound_ms = ft["bound_ms"]
     print(f"flash_attention timing at (1, {PREFILL}, {H}/{KV}, {dh}) bf16 "
-          f"causal (one prefill layer): kernel {flash_ms!r} ms, plain "
-          f"{flash_plain_ms!r} ms, library_ms {flash_lib_ms!r} ms "
-          f"(scaled_dot_product_attention, enable_gqa; max|d| vs the kernel "
-          f"{sdpa_err!r}); bound {flash_bound_ms!r} ms = max(operations: "
-          f"{4 * dh * pairs * H / 1e9:.2f} GFLOP over {pairs} unmasked "
-          f"pairs per head at 989 TFLOP/s = {flash_ops_ms!r} ms, bytes: "
-          f"{flash_bytes_ms!r} ms), {flash_bound_ms / flash_ms:.1%} of "
-          f"bound; per {L}-layer forward {L * flash_ms!r} ms (CUDA-event "
-          f"times); profiler device times: kernel {flash_dev_ms!r} ms "
-          f"({flash_bound_ms / flash_dev_ms:.1%} of bound), library "
-          f"{flash_lib_dev_ms!r} ms; design "
-          f"{fa_mod.design(qf.dtype)} [{card}]")
-    del q, k, v, qf, kf, vf, q4, k4, v4, sdpa
-    torch.cuda.empty_cache()
+          f"causal (one prefill layer): {ft['line']}; per {L}-layer forward "
+          f"{L * flash_ms!r} ms [{card}]")
 
     # --- 5. flash-decoding vs plain version; timed at decode_32k -------------
     drows = check_decode(torch, ops, da_mod)
@@ -1190,26 +2007,7 @@ def main() -> int:
     if diff > LOGIT_TOL * ref_max or agree < MIN_TOKEN_AGREEMENT:
         raise RuntimeError("gated and ungated first-step logits disagree")
 
-    def trace_steps(sess, what, n_traced=4):
-        """Where the time of a gated step goes on the device: n_traced
-        prefill-phase steps of `sess` under the profiler."""
-        sess.reset()
-        prof = profile_window(
-            torch, lambda: sess.prefill(prompt[:, :n_traced]))
-        sess.reset()
-        if prof["busy_ms"] <= 0:
-            print(f"traced {what} steps: the profiler recorded no device "
-                  f"time (device busy share not measured)")
-            return
-        print(f"traced {what} steps ({n_traced}, profiler on): wall "
-              f"{prof['wall_ms'] / n_traced!r} ms/step, device busy "
-              f"{prof['busy_ms'] / n_traced!r} ms/step, device idle share "
-              f"{1 - prof['busy_ms'] / prof['wall_ms']!r}")
-        for name, us in prof["kernels"][:8]:
-            print(f"  device {us / 1e3 / n_traced!r} ms/step "
-                  f"({us / 1e3 / prof['busy_ms']:.1%}): {name[:90]}")
-
-    trace_steps(gated, "gated")
+    trace_steps(torch, gated, prompt, "gated", card)
 
     # --- 9b. the graphed step against the eager step ------------------------
     def eager_generate(sess, toks, n_new):
@@ -1270,28 +2068,7 @@ def main() -> int:
         raise RuntimeError("the graphed serve's peak memory exceeds the "
                            "eager serve's by more than the graph pools")
 
-    def graphed_vs_eager(sess, n_fill):
-        """Both steps of a session, graphed, against the eager function on
-        a clone of the cache: logits and caches bit for bit."""
-        sess.reset()
-        sess.prefill(prompt[:, :n_fill])
-        results = []
-        for name, fn, table in (("prefill", sess.core.prefill_step,
-                                 sess.prefill_plan_table),
-                                ("decode", sess.core.step, sess.plan_table)):
-            copy = clone_cache(sess.cache)
-            tok = prompt[:, n_fill:n_fill + 1]
-            got, _ = fn(sess.cache, tok, sess.pos)
-            with torch.inference_mode():
-                want, copy = make_serve_step(cfg, sess.rc, table)(
-                    sess.params, copy, tok, sess.pos)
-            same = torch.equal(got, want) and all(
-                torch.equal(sess.cache[0][k], copy[0][k]) for k in copy[0])
-            results.append((name, same))
-        sess.reset()
-        return results
-
-    bitwise = graphed_vs_eager(gated, 5)
+    bitwise = graphed_vs_eager(torch, gated, prompt, 5)
     print(f"graphed steps vs the eager function on a clone of the cache "
           f"(logits and cache bit for bit): {bitwise}; decode_executables "
           f"{gated.decode_executables}, prefill_executables "
@@ -1449,7 +2226,7 @@ def main() -> int:
             kv_launches["B"] != expected) or kv_agree < MIN_TOKEN_AGREEMENT:
         raise RuntimeError("the int8-KV serve disagrees with the bf16-KV "
                            "serve")
-    trace_steps(kv_sess, "int8-KV gated")
+    trace_steps(torch, kv_sess, prompt, "int8-KV gated", card)
     del kv_sess, gated, ungated                 # free the INT8 tree
     torch.cuda.empty_cache()
 
@@ -1545,7 +2322,7 @@ def main() -> int:
                                f"disagree at {precision}")
         sess.reset()
         del ung
-        trace_steps(sess, f"{precision} gated")
+        trace_steps(torch, sess, prompt, f"{precision} gated", card)
         return out, sess
 
     fp8_serve, fp8_sess = serve_at("fp8")
@@ -1896,7 +2673,9 @@ def main() -> int:
             "continuous-batching"):
         raise RuntimeError("the serving CLI's report is wrong")
 
-    # --- 18. result lines ----------------------------------------------------
+    fam_kernels = families(torch, card)     # phases 18-26
+
+    # --- 27. result lines ----------------------------------------------------
     kernels = [{
         "name": "int8_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_gemm.cu",
@@ -2074,6 +2853,7 @@ def main() -> int:
                 f"launches counted over the adaptive engine run "
                 f"(PlanService(backend='pallas') planning each bucket it "
                 f"served on the card)"}]
+    kernels += fam_kernels
     for entry in kernels:               # JSON has no NaN: not measured
         for key in ("device_ms", "library_device_ms"):
             if key in entry and not math.isfinite(entry[key]):

@@ -4,6 +4,12 @@ JSON report keys).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
       --smoke --batch 4 --prompt-len 16 --new-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
+      --smoke --batch 8 --quantize
+
+--arch takes the dense, moe, ssm and hybrid families (qwen2-7b,
+qwen2-moe-a2.7b, llama4-scout-17b-a16e, mamba2-780m,
+jamba-1.5-large-398b, ...); a vlm or audio arch is refused (not ported).
 
 --quantize runs the planner-gated INT8 session (verdicts routed into the
 decode step, which runs as one CUDA graph) and reports the per-label
@@ -39,6 +45,7 @@ import torch
 
 from ..configs import ARCHS, RunConfig, reduced
 from ..models import init
+from ..models.model import FAMILIES
 from ..serving import (CIM_ROUTE, ContinuousBatchingEngine, DecodeCore,
                        ServeSession, cim_fraction, poisson_arrivals,
                        synthetic_requests)
@@ -205,6 +212,9 @@ def main(argv=None):
         ap.error("--adaptive needs traffic mode (--requests N)")
 
     cfg = ARCHS[args.arch]
+    if cfg.family not in FAMILIES:
+        ap.error(f"--arch {args.arch}: the {cfg.family} family is not ported "
+                 f"yet (ported: {', '.join(FAMILIES)})")
     if args.smoke:
         cfg = reduced(cfg)
     rc = RunConfig(attn_impl="naive", remat=False,

@@ -1,6 +1,7 @@
-"""The dense decoder LM: layers, attention, the prefill forward and the
+"""The decoder LM of the dense, moe, ssm and hybrid families: layers,
+attention, the MoE FFN, the mamba2 mixer, the prefill forward and the
 decode step over a contiguous or a paged KV cache."""
-from . import attention, layers, model
+from . import attention, layers, mamba2, model, moe
 from .layers import linear, route_trace
 from .model import (clone_cache, decode_step, forward, init, init_cache,
                     init_paged_cache, n_periods, period_slots)
@@ -8,4 +9,4 @@ from .model import (clone_cache, decode_step, forward, init, init_cache,
 __all__ = ["init", "forward", "decode_step", "init_cache",
            "init_paged_cache", "clone_cache", "period_slots",
            "n_periods", "linear", "route_trace", "attention", "layers",
-           "model"]
+           "mamba2", "model", "moe"]

@@ -73,7 +73,7 @@ def _record_route(label: str, route: str) -> None:
                         f":{f.f_lineno}"})
 
 
-def linear(w, x, label: str, plan=None):
+def linear(w, x, label: str, plan=None, spec: str | None = None):
     """y = x @ w — THE projection entry point, routed by the kernel plan.
 
     w is either a float weight tensor or a quantized leaf: {"q", "scale"}
@@ -83,33 +83,36 @@ def linear(w, x, label: str, plan=None):
     projection whose label gates on runs the INT8 GEMM kernel
     (planned_linear, planned_linear_int4, planned_linear_fp8); every
     other quantized projection contracts against the raw weight in
-    x.dtype with the scale in the epilogue.  Unknown labels raise
-    KeyError from the plan table: model-side label drift must not
-    silently disable gating."""
+    x.dtype with the scale in the epilogue.  `spec` is an optional einsum
+    spec for a stacked weight (the MoE experts' `"td,edf->etf"`,
+    `"ecd,edf->ecf"`, ...): the kernel takes only plain 2-D matmuls, so a
+    spec or a weight that is not 2-D records the dequant route even when
+    its label gates on.  Unknown labels raise KeyError from the plan
+    table: model-side label drift must not silently disable gating."""
     quantized = isinstance(w, dict)
     use_cim = bool(plan is not None and quantized and plan.use_cim(label))
     if quantized:
         if "q4" in w:
-            if use_cim and w["q4"].ndim == 2:
+            if use_cim and spec is None and w["q4"].ndim == 2:
                 _record_route(label, CIM_INT4_ROUTE)
                 return planned_linear_int4(x, w["q4"], w["scale"])
             _record_route(label, DEQUANT_INT4_ROUTE)
-            return dequant_contract_int4(x, w["q4"], w["scale"])
+            return dequant_contract_int4(x, w["q4"], w["scale"], spec)
         if "qf8" in w:
-            if use_cim and w["qf8"].ndim == 2:
+            if use_cim and spec is None and w["qf8"].ndim == 2:
                 _record_route(label, CIM_FP8_ROUTE)
                 return planned_linear_fp8(x, w["qf8"], w["scale"])
             _record_route(label, DEQUANT_FP8_ROUTE)
-            return dequant_contract_fp8(x, w["qf8"], w["scale"])
-        if use_cim and w["q"].ndim == 2:
+            return dequant_contract_fp8(x, w["qf8"], w["scale"], spec)
+        if use_cim and spec is None and w["q"].ndim == 2:
             _record_route(label, CIM_ROUTE)
             return planned_linear(x, w["q"], w["scale"], use_cim_path=True)
         _record_route(label, DEQUANT_ROUTE)
-        return dequant_contract(x, w["q"], w["scale"])
+        return dequant_contract(x, w["q"], w["scale"], spec)
     _record_route(label, FLOAT_ROUTE)
     if w.dtype != x.dtype:
         w = w.to(x.dtype)
-    return x @ w
+    return torch.einsum(spec, x, w) if spec else x @ w
 
 
 # --- initializers -----------------------------------------------------------

@@ -1,12 +1,19 @@
-"""The decoder LM for the `dense` family (qwen2-7b and its kin), in torch.
+"""The decoder LM of the dense, moe, ssm and hybrid families, in torch.
 
-A model is a stack of *periods*; for the dense family a period is one
-slot, (attention, dense SwiGLU MLP).  Parameters are a plain dict keyed
-like the JAX package's pytree — "embed", "lm_head", "final_norm.scale",
-"slots"[0]."attn"."wq" stacked over periods (layers), and so on — so
-`repro_torch.convert.params_from_jax` maps one onto the other leaf by
-leaf.  The layer loop is a Python loop over periods (the JAX package
-scans).
+A model is a stack of *periods*: the smallest repeating layer pattern.
+Each period is a list of *slots*, each slot = (mixer, ffn) with mixer in
+{attn, mamba} and ffn in {dense, moe, None}, as in the JAX package:
+
+  dense / moe    : period = [(attn, dense | moe)]
+  ssm (mamba2)   : period = [(mamba, None)]
+  hybrid (jamba) : period = [(attn, ffn0), (mamba, ffn1) x (attn_every-1)],
+                   ffn_i = moe on every `moe.every_n_layers`-th slot
+
+Parameters are a plain dict keyed like the JAX package's pytree —
+"embed", "lm_head", "final_norm.scale", "slots"[s]."attn"."wq" stacked
+over periods, and so on — so `repro_torch.convert.params_from_jax` maps
+one onto the other leaf by leaf.  The layer loop is a Python loop over
+periods and slots (the JAX package scans over periods).
 
 Entry points:
   init(gen, cfg, device)                     -> params
@@ -18,16 +25,17 @@ Entry points:
               [, active, block_tables])      -> logits, cache
 
 Unlike the JAX package, which returns a new cache, `decode_step` writes
-the new token's K/V into `cache` in place and returns the same object.
-With `RunConfig(kv_cache_dtype="int8")` the cache holds int8 codes with a
-bf16 scale per (position, kv head), as in the JAX package, in the
+the new token's K/V, and each mamba slot's SSM state and conv carry, into
+`cache` in place and returns the same object.  With
+`RunConfig(kv_cache_dtype="int8")` the attention cache holds int8 codes
+with a bf16 scale per (position, kv head), as in the JAX package, in the
 contiguous and in the paged cache.  `decode_step` makes no host sync:
 `pos`, `active` and `block_tables` may be device tensors, so the step
 can be captured as a CUDA graph (`repro_torch.serving.core`).
 
-Not ported yet: the other families (moe, ssm, hybrid, vlm, audio); they
-raise NotImplementedError naming their ROADMAP.md queue-1 item ('The
-other families').
+Not ported yet: the vlm (cross attention) and audio (codebooks)
+families; they raise NotImplementedError naming their ROADMAP.md queue-1
+item ('The other families').
 """
 from __future__ import annotations
 
@@ -40,24 +48,41 @@ from ..configs.base import ModelConfig, RunConfig
 from .attention import attend, decode_attend
 from .layers import (apply_rope, attn_out_proj, dense_init, dtype_of,
                      embed_init, linear, qkv_proj, rmsnorm, swiglu)
+from .mamba2 import mamba_apply, mamba_cache_shapes, mamba_init
+from .moe import moe_apply, moe_init
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
 class Slot:
-    mixer: str          # "attn"
-    ffn: str | None     # "dense"
+    mixer: str          # "attn" | "mamba"
+    ffn: str | None     # "dense" | "moe" | None
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (only 'dense'); see "
-            f"ROADMAP.md, queue 1, 'The other families'")
+            f"family {cfg.family!r} is not ported yet (ported: "
+            f"{', '.join(FAMILIES)}); see ROADMAP.md, queue 1, 'The other "
+            f"families'")
 
 
 def period_slots(cfg: ModelConfig) -> list[Slot]:
     _check_family(cfg)
-    return [Slot("attn", "dense")]
+    if cfg.family == "dense":
+        return [Slot("attn", "dense")]
+    if cfg.family == "moe":
+        return [Slot("attn", "moe")]
+    if cfg.family == "ssm":
+        return [Slot("mamba", None)]
+    slots = []                                   # hybrid
+    for i in range(cfg.attn_every):
+        mixer = "attn" if i == 0 else "mamba"
+        ffn = "moe" if (cfg.moe and i % cfg.moe.every_n_layers
+                        == cfg.moe.every_n_layers - 1) else "dense"
+        slots.append(Slot(mixer, ffn))
+    return slots
 
 
 def n_periods(cfg: ModelConfig) -> int:
@@ -70,13 +95,62 @@ def n_periods(cfg: ModelConfig) -> int:
 
 # --- init --------------------------------------------------------------------
 
+def _slot_init(gen: torch.Generator, slot: Slot, cfg: ModelConfig, dtype,
+               device):
+    """One layer of one slot, drawn from `gen`: the mixer's weights, then
+    the FFN's (none for a slot without an FFN)."""
+    d = cfg.d_model
+    ones = dict(dtype=dtype, device=device)
+    p = {"norm1": {"scale": torch.ones(d, **ones)}}
+    if slot.mixer == "attn":
+        nh, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
+        p["attn"] = {
+            name: dense_init(gen, k, n, dtype, scale, device)
+            for name, (k, n, scale) in (
+                ("wq", (d, nh * dh, None)), ("wk", (d, kvh * dh, None)),
+                ("wv", (d, kvh * dh, None)),
+                ("wo", (nh * dh, d, 1.0 / math.sqrt(nh * dh))))}
+        if cfg.qkv_bias:
+            for name, n in (("bq", nh * dh), ("bk", kvh * dh),
+                            ("bv", kvh * dh)):
+                p["attn"][name] = torch.zeros(n, **ones)
+    else:
+        p["mamba"] = mamba_init(gen, cfg, dtype, device)
+    if slot.ffn is not None:
+        p["norm2"] = {"scale": torch.ones(d, **ones)}
+        if slot.ffn == "dense":
+            p["mlp"] = {name: dense_init(gen, k, n, dtype, device=device)
+                        for name, (k, n) in (("w_gate", (d, cfg.d_ff)),
+                                             ("w_up", (d, cfg.d_ff)),
+                                             ("w_down", (cfg.d_ff, d)))}
+        else:
+            p["moe"] = moe_init(gen, cfg, dtype, device)
+    return p
+
+
+def _stack_into(stacked, i: int, layer, n: int):
+    """Write one layer's tree into row i of the stacked tree (allocated,
+    with n rows, at the first layer)."""
+    if stacked is None:
+        stacked = {}
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            stacked[k] = _stack_into(stacked.get(k), i, v, n)
+        else:
+            if k not in stacked:
+                stacked[k] = torch.empty((n,) + tuple(v.shape),
+                                         dtype=v.dtype, device=v.device)
+            stacked[k][i] = v
+    return stacked
+
+
 def init(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
-    """Random parameters from `gen` (a torch.Generator on `device`),
-    made one layer at a time straight into the stacked tensors."""
+    """Random parameters from `gen` (a torch.Generator on `device`), made
+    one period at a time straight into the stacked tensors, slot by slot
+    (so no more than one layer is drawn beside them)."""
     _check_family(cfg)
     dtype = dtype_of(cfg.param_dtype)
     L, d = n_periods(cfg), cfg.d_model
-    nh, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
     params = {"embed": embed_init(gen, cfg.vocab, d, dtype, device)}
     if not cfg.tie_embeddings:
         # the JAX package draws (vocab, d) and transposes; drawing (d, vocab)
@@ -85,43 +159,53 @@ def init(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
                                          device=device) * 0.02).to(dtype)
     params["final_norm"] = {"scale": torch.ones(d, dtype=dtype,
                                                 device=device)}
-    mats = {"attn": {"wq": (d, nh * dh, None), "wk": (d, kvh * dh, None),
-                     "wv": (d, kvh * dh, None),
-                     "wo": (nh * dh, d, 1.0 / math.sqrt(nh * dh))},
-            "mlp": {"w_gate": (d, cfg.d_ff, None), "w_up": (d, cfg.d_ff, None),
-                    "w_down": (cfg.d_ff, d, None)}}
-    slot = {"norm1": {"scale": torch.ones((L, d), dtype=dtype,
-                                          device=device)},
-            "norm2": {"scale": torch.ones((L, d), dtype=dtype,
-                                          device=device)}}
-    for group, leaves in mats.items():
-        slot[group] = {name: torch.empty((L, k, n), dtype=dtype,
-                                         device=device)
-                       for name, (k, n, _) in leaves.items()}
-    if cfg.qkv_bias:
-        for name, n in (("bq", nh * dh), ("bk", kvh * dh), ("bv", kvh * dh)):
-            slot["attn"][name] = torch.zeros((L, n), dtype=dtype,
-                                             device=device)
+    slots = period_slots(cfg)
+    stacked = [None] * len(slots)
     for i in range(L):
-        for group, leaves in mats.items():
-            for name, (k, n, scale) in leaves.items():
-                slot[group][name][i] = dense_init(gen, k, n, dtype, scale,
-                                                  device)
-    params["slots"] = [slot]
+        for si, slot in enumerate(slots):
+            stacked[si] = _stack_into(
+                stacked[si], i, _slot_init(gen, slot, cfg, dtype, device), L)
+    params["slots"] = stacked
     return params
+
+
+def _mamba_entry(cfg: ModelConfig, batch: int, device,
+                 conv_dtype=torch.bfloat16):
+    """A mamba slot's per-slot O(1) cache: the f32 SSM state and the conv
+    carry (bf16, as in the JAX package), stacked over periods."""
+    sst, scv = mamba_cache_shapes(cfg, batch)
+    np_ = n_periods(cfg)
+    return {"state": torch.zeros((np_,) + sst, dtype=torch.float32,
+                                 device=device),
+            "conv": torch.zeros((np_,) + scv, dtype=conv_dtype,
+                                device=device)}
 
 
 def init_cache(cfg: ModelConfig, rc: RunConfig, batch: int, max_len: int,
                device="cuda"):
-    """KV cache: one {"k", "v"} entry per slot, each (periods, batch,
-    max_len, kv_heads, head_dim) in rc.kv_cache_dtype.  An "int8" cache
-    holds int8 codes and adds bf16 "k_scale" / "v_scale" leaves of shape
-    (periods, batch, max_len, kv_heads)."""
+    """Cache: one entry per slot.  An attention slot gets {"k", "v"},
+    each (periods, batch, max_len, kv_heads, head_dim) in
+    rc.kv_cache_dtype; an "int8" cache holds int8 codes and adds bf16
+    "k_scale" / "v_scale" leaves of shape (periods, batch, max_len,
+    kv_heads).  A mamba slot gets {"state" f32 (periods, batch, heads,
+    d_state, headdim), "conv" (periods, batch, d_conv - 1, channels)}.
+
+    The conv carry is bf16 but under an f32 compute dtype, where it is
+    f32: the JAX package's contiguous step returns the carry it computed
+    uncast when no `active` mask is given, so its bf16 zeros turn into an
+    f32 carry after the first step (its paged, masked step casts back to
+    bf16, as `init_paged_cache`'s carry is)."""
     int8 = rc.kv_cache_dtype == "int8"
     dtype = torch.int8 if int8 else dtype_of(rc.kv_cache_dtype)
-    shape = (n_periods(cfg), batch, max_len, cfg.n_kv_heads, cfg.head_dim())
+    conv_dtype = torch.promote_types(torch.bfloat16,
+                                     dtype_of(cfg.compute_dtype))
     caches = []
-    for _ in period_slots(cfg):
+    for slot in period_slots(cfg):
+        if slot.mixer == "mamba":
+            caches.append(_mamba_entry(cfg, batch, device, conv_dtype))
+            continue
+        shape = (n_periods(cfg), batch, max_len, cfg.n_kv_heads,
+                 cfg.head_dim())
         c = {"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
         if int8:
@@ -171,15 +255,18 @@ def init_paged_cache(cfg: ModelConfig, rc: RunConfig, n_slots: int,
     of shape (periods, n_blocks, block_size, kv_heads).  Every pool is a
     view of a buffer with one spare block per period beyond the pool
     (see `_paged_write`); the pool itself has the JAX package's shape.
-    `n_slots` is unused by the dense family (it sizes the per-slot state
-    of the other families)."""
-    del n_slots
+    A mamba slot's state and conv carry stay per serving slot, one row
+    for each of the `n_slots` (they are O(1) in sequence length: nothing
+    to page)."""
     int8 = rc.kv_cache_dtype == "int8"
     dtype = torch.int8 if int8 else dtype_of(rc.kv_cache_dtype)
     shape = (n_periods(cfg), n_blocks, block_size, cfg.n_kv_heads,
              cfg.head_dim())
     caches = []
-    for _ in period_slots(cfg):
+    for slot in period_slots(cfg):
+        if slot.mixer == "mamba":
+            caches.append(_mamba_entry(cfg, n_slots, device))
+            continue
         c = {"k": _pool(shape, dtype, device), "v": _pool(shape, dtype, device)}
         if int8:
             for key in ("k_scale", "v_scale"):
@@ -269,18 +356,32 @@ def _lm_logits(params, x, cfg: ModelConfig, plan=None):
     return linear(head, x, "lm_head", plan)
 
 
+def _apply_ffn(slot: Slot, sp, x, cfg: ModelConfig, plan=None):
+    """The slot's FFN with its residual: (x, aux); aux is 0.0 but for a
+    MoE FFN."""
+    if slot.ffn is None:
+        return x, 0.0
+    h = rmsnorm(sp["norm2"], x, cfg.rmsnorm_eps)
+    if slot.ffn == "dense":
+        return x + swiglu(sp["mlp"], h, plan), 0.0
+    y, aux = moe_apply(sp["moe"], h, cfg, plan)
+    return x + y, aux
+
+
 def forward(params, tokens, cfg: ModelConfig, rc: RunConfig,
             image_embeds=None, plan=None):
     """The full-sequence forward (prefill).  tokens: (b, l) int.  Returns
-    (logits (b, l, vocab), aux), aux = 0.0 (the dense family has no
-    auxiliary loss).  `plan` (a KernelPlanTable) gates quantized
-    projections per label, as in `decode_step`; attention runs
-    `attend(impl=rc.attn_impl)` on positions arange(l).
+    (logits (b, l, vocab), aux): aux sums the MoE load-balancing losses
+    over the MoE slots (0.0 for a model without one).  `plan` (a
+    KernelPlanTable) gates quantized projections per label, as in
+    `decode_step`; attention runs `attend(impl=rc.attn_impl)` on
+    positions arange(l); a mamba slot runs the chunked SSD with chunk
+    min(cfg.ssm.chunk, l), which must divide l (ValueError otherwise).
 
     The JAX package's `remat` and sharding constraints are training and
     mesh concerns and are not applied here; the layer loop is a Python
     loop over periods (so `scan_unroll` has nothing to unroll).  Cross
-    attention (`image_embeds`) and the other families raise
+    attention (`image_embeds`) and the vlm and audio families raise
     NotImplementedError."""
     _check_family(cfg)
     if image_embeds is not None:
@@ -291,29 +392,97 @@ def forward(params, tokens, cfg: ModelConfig, rc: RunConfig,
     x = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
     nh, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
     pos = torch.arange(l, device=x.device)[None, :]
-    slot_params = params["slots"][0]
+    slots = period_slots(cfg)
+    aux = 0.0
     for i in range(n_periods(cfg)):
-        sp = _layer(slot_params, i)
-        h = rmsnorm(sp["norm1"], x, cfg.rmsnorm_eps)
-        q, k, v = qkv_proj(sp["attn"], h, nh, kvh, dh, plan)
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, pos, cfg.rope_theta)
-        o = attend(q, k, v, impl=rc.attn_impl, chunk=rc.attn_chunk,
-                   window=cfg.sliding_window, block_causal=rc.block_causal,
-                   q_chunk=rc.attn_q_chunk)
-        x = x + attn_out_proj(sp["attn"], o.reshape(b, l, nh * dh), plan)
-        h = rmsnorm(sp["norm2"], x, cfg.rmsnorm_eps)
-        x = x + swiglu(sp["mlp"], h, plan)
+        for slot, slot_params in zip(slots, params["slots"]):
+            sp = _layer(slot_params, i)
+            h = rmsnorm(sp["norm1"], x, cfg.rmsnorm_eps)
+            if slot.mixer == "mamba":
+                y, _ = mamba_apply(sp["mamba"], h, cfg, plan=plan)
+            else:
+                q, k, v = qkv_proj(sp["attn"], h, nh, kvh, dh, plan)
+                q = apply_rope(q, pos, cfg.rope_theta)
+                k = apply_rope(k, pos, cfg.rope_theta)
+                o = attend(q, k, v, impl=rc.attn_impl, chunk=rc.attn_chunk,
+                           window=cfg.sliding_window,
+                           block_causal=rc.block_causal,
+                           q_chunk=rc.attn_q_chunk)
+                y = attn_out_proj(sp["attn"], o.reshape(b, l, nh * dh), plan)
+            x, a = _apply_ffn(slot, sp, x + y, cfg, plan)
+            aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps)
-    return _lm_logits(params, x, cfg, plan), 0.0
+    return _lm_logits(params, x, cfg, plan), aux
+
+
+def _mask_rows(new, old, active):
+    """Per-slot select: active slots take the updated cache row, free or
+    draining slots keep theirs, so garbage tokens can't corrupt them."""
+    if active is None:
+        return new
+    m = active.reshape((-1,) + (1,) * (new.dim() - 1))
+    return torch.where(m, new.to(old.dtype), old)
+
+
+def _mamba_step(mp, layer, h, cfg: ModelConfig, plan, active):
+    """A mamba slot's decode step: the recurrent update from the layer's
+    SSM state and conv carry, written back in place (an inactive slot's
+    rows keep theirs).  Returns the mixer output."""
+    y, (st, cv) = mamba_apply(mp, h, cfg, state=layer["state"],
+                              conv_carry=layer["conv"], decode=True,
+                              plan=plan)
+    layer["state"].copy_(_mask_rows(st, layer["state"], active))
+    layer["conv"].copy_(_mask_rows(cv, layer["conv"], active))
+    return y
+
+
+def _attn_step(ap, layer, h, pos, pvec, lens, cfg: ModelConfig,
+               rc: RunConfig, plan, active, block_tables):
+    """An attention slot's decode step: this token's K/V (int8 codes and
+    scales with an "int8" cache) written into the layer's contiguous
+    cache at `pos`, or into its block pool at each slot's position, then
+    attention over the valid prefix.  Returns the output projection."""
+    b = h.shape[0]
+    nh, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
+    int8_kv = rc.kv_cache_dtype == "int8"
+    q, k, v = qkv_proj(ap, h, nh, kvh, dh, plan)
+    q = apply_rope(q, pvec, cfg.rope_theta)
+    k = apply_rope(k, pvec, cfg.rope_theta)
+    if int8_kv:
+        (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+        rows = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        rows = {"k": k, "v": v}
+    if block_tables is not None:
+        for key, new in rows.items():
+            _paged_write(layer[key], new[:, 0], pvec[:, 0], block_tables,
+                         active)
+        strip = {key: _paged_view(layer[key], block_tables) for key in rows}
+    else:
+        for key, new in rows.items():
+            if torch.is_tensor(pos):
+                layer[key].index_copy_(1, pvec[:1, 0],
+                                       new.to(layer[key].dtype))
+            else:
+                layer[key][:, pos] = new[:, 0].to(layer[key].dtype)
+        strip = layer
+    if int8_kv:
+        kd = _dequantize_kv(strip["k"], strip["k_scale"])
+        vd = _dequantize_kv(strip["v"], strip["v_scale"])
+    else:
+        kd, vd = strip["k"], strip["v"]
+    o = decode_attend(q, kd, vd, lens, window=cfg.sliding_window,
+                      grouped=rc.gqa_einsum)
+    return attn_out_proj(ap, o.reshape(b, 1, nh * dh), plan)
 
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
                 rc: RunConfig, plan=None, active=None, block_tables=None):
     """One decode step.  tokens: (b, 1) int; pos: the current length
     shared by the batch, an int or a 0-d tensor, OR (b,) per-slot lengths
-    (ragged, continuous batching).  Writes this token's K/V into `cache`
-    in place and returns (logits (b, 1, vocab), cache).  `plan` is the
+    (ragged, continuous batching).  Writes this token's K/V, and each
+    mamba slot's new SSM state and conv carry, into `cache` in place and
+    returns (logits (b, 1, vocab), cache).  `plan` is the
     KernelPlanTable: gated projection labels run the INT8 GEMM kernel.
     With rc.kv_cache_dtype "int8" the new K/V are quantized per
     (position, kv head), written with their scales, and attention reads
@@ -322,67 +491,42 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
     Continuous batching (as in the JAX package):
       * ragged `pos` (b,): each slot attends and ropes at its own length;
       * `active` (b,) bool: inactive (free or draining) slots write no
-        cache row;
+        cache row, and their mamba state and conv carry stay as they were;
       * `block_tables` (b, max_blocks) int: K/V live in the block pool of
         `init_paged_cache`; the step scatters one row into each slot's
         current block and attends over the slot's gathered strip.
-        Required whenever `pos` is ragged.
+        Required whenever `pos` is ragged and the period has an attention
+        slot.
 
     No input is read on the host: a tensor `pos` stays on the device, so
     the step can be captured as a CUDA graph and replayed."""
-    _check_family(cfg)
+    slots = period_slots(cfg)
     ragged = torch.is_tensor(pos) and pos.ndim == 1
     if torch.is_tensor(pos) and pos.ndim > 1:
         raise ValueError(f"pos must be 0-d or (b,), got {tuple(pos.shape)}")
-    if ragged and block_tables is None:
+    if ragged and block_tables is None and any(s.mixer == "attn"
+                                              for s in slots):
         raise ValueError("ragged per-slot positions need a paged KV cache: "
                          "pass block_tables (see init_paged_cache)")
-    int8_kv = rc.kv_cache_dtype == "int8"
     b = tokens.shape[0]
     x = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
-    nh, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
     if torch.is_tensor(pos):
         pvec = pos.long().reshape(-1, 1).expand(b, 1)
         lens = pvec[:, 0] + 1
     else:
         pvec = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
         lens = torch.full((b,), pos + 1, dtype=torch.long, device=x.device)
-    slot_params, slot_cache = params["slots"][0], cache[0]
     for i in range(n_periods(cfg)):
-        sp = _layer(slot_params, i)
-        h = rmsnorm(sp["norm1"], x, cfg.rmsnorm_eps)
-        q, k, v = qkv_proj(sp["attn"], h, nh, kvh, dh, plan)
-        q = apply_rope(q, pvec, cfg.rope_theta)
-        k = apply_rope(k, pvec, cfg.rope_theta)
-        layer = {key: t[i] for key, t in slot_cache.items()}
-        if int8_kv:
-            (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
-            rows = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
-        else:
-            rows = {"k": k, "v": v}
-        if block_tables is not None:
-            for key, new in rows.items():
-                _paged_write(layer[key], new[:, 0], pvec[:, 0],
-                             block_tables, active)
-            strip = {key: _paged_view(layer[key], block_tables)
-                     for key in rows}
-        else:
-            for key, new in rows.items():
-                if torch.is_tensor(pos):
-                    layer[key].index_copy_(1, pvec[:1, 0],
-                                           new.to(layer[key].dtype))
-                else:
-                    layer[key][:, pos] = new[:, 0].to(layer[key].dtype)
-            strip = layer
-        if int8_kv:
-            kd = _dequantize_kv(strip["k"], strip["k_scale"])
-            vd = _dequantize_kv(strip["v"], strip["v_scale"])
-        else:
-            kd, vd = strip["k"], strip["v"]
-        o = decode_attend(q, kd, vd, lens, window=cfg.sliding_window,
-                          grouped=rc.gqa_einsum)
-        x = x + attn_out_proj(sp["attn"], o.reshape(b, 1, nh * dh), plan)
-        h = rmsnorm(sp["norm2"], x, cfg.rmsnorm_eps)
-        x = x + swiglu(sp["mlp"], h, plan)
+        for slot, slot_params, slot_cache in zip(slots, params["slots"],
+                                                 cache):
+            sp = _layer(slot_params, i)
+            layer = {key: t[i] for key, t in slot_cache.items()}
+            h = rmsnorm(sp["norm1"], x, cfg.rmsnorm_eps)
+            if slot.mixer == "mamba":
+                y = _mamba_step(sp["mamba"], layer, h, cfg, plan, active)
+            else:
+                y = _attn_step(sp["attn"], layer, h, pos, pvec, lens, cfg, rc,
+                               plan, active, block_tables)
+            x, _ = _apply_ffn(slot, sp, x + y, cfg, plan)
     x = rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps)
     return _lm_logits(params, x, cfg, plan), cache

@@ -1,0 +1,135 @@
+"""Mixture-of-Experts FFN with scatter/gather dispatch, in torch (the
+port of the JAX package's `repro/models/moe.py`, under the same names).
+
+Dispatch: top-k routing -> position-in-expert via cumsum -> scatter tokens
+into an (E, C, d) buffer -> batched expert contractions -> weighted
+gather-back.  Tokens beyond expert capacity are dropped (standard
+capacity-factor MoE).
+
+Decode exception, as in the JAX package: when the token count fits expert
+capacity (T <= C, always true for a decode micro-batch) no token can be
+dropped, so `moe_apply` runs every expert over every token with one
+batched contraction per weight and selects each token's top-k outputs.
+
+The expert weights are stacked (E, K, N) leaves, so they contract through
+`linear(..., spec=...)`: a quantized expert always takes the dequant
+route (the INT8 GEMM kernel takes plain 2-D matmuls only), as in the JAX
+package.  Each token's k weighted expert outputs are summed in k order,
+with no atomics, so a step replayed from a CUDA graph equals the eager
+step bit for bit.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from .layers import dense_init, linear, swiglu
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype, device="cuda"):
+    """One layer's MoE parameters from `gen`: an f32 router (d, E), the
+    stacked experts (E, d, f) / (E, f, d) in `dtype`, and the shared
+    expert's SwiGLU where the config has one."""
+    m = cfg.moe
+    d, E, f = cfg.d_model, m.n_experts, m.expert_d_ff
+
+    def experts(k, n):
+        return (torch.randn((E, k, n), generator=gen, device=device,
+                            dtype=torch.float32) / k ** 0.5).to(dtype)
+
+    p = {"router": dense_init(gen, d, E, torch.float32, device=device),
+         "w_gate": experts(d, f), "w_up": experts(d, f),
+         "w_down": experts(f, d)}
+    if m.n_shared_experts:
+        sf = m.shared_d_ff
+        p["shared"] = {"w_gate": dense_init(gen, d, sf, dtype, device=device),
+                       "w_up": dense_init(gen, d, sf, dtype, device=device),
+                       "w_down": dense_init(gen, sf, d, dtype, device=device)}
+    return p
+
+
+def capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    m = cfg.moe
+    c = int(n_tokens * m.top_k * m.capacity_factor / m.n_experts)
+    return max(8, -(-c // 8) * 8)      # round up to 8
+
+
+def _one_hot(ids, n: int, dtype):
+    """(...,) int -> (..., n) one-hot in `dtype` (a comparison: no host
+    read of the ids, so it can be captured in a CUDA graph)."""
+    return (ids[..., None] == torch.arange(n, device=ids.device)).to(dtype)
+
+
+def _sum_over_k(contrib):
+    """(T, k, d) -> (T, d), summed in k order."""
+    y = contrib[:, 0]
+    for j in range(1, contrib.shape[1]):
+        y = y + contrib[:, j]
+    return y
+
+
+def moe_apply(params, x, cfg: ModelConfig, plan=None, *,
+              force_buffered: bool = False):
+    """x: (b, l, d) -> (y, aux_loss).
+
+    `force_buffered` disables the T <= C decode fast path, so both
+    dispatch forms can be held against the reference's."""
+    m = cfg.moe
+    E, k = m.n_experts, m.top_k
+    b, l, d = x.shape
+    T = b * l
+    xt = x.reshape(T, d)
+    C = capacity(cfg, T)
+
+    # the router is an ungated f32 matmul (the JAX package promotes
+    # bf16 @ f32 to f32; torch wants both operands in f32)
+    logits = xt.float() @ params["router"].float()           # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_ids = torch.topk(probs, k, dim=-1, sorted=True)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    w = gate_vals.to(x.dtype)
+
+    if T <= C and not force_buffered:
+        # no expert can overflow: every expert over every token, then
+        # each token's top-k outputs
+        g = F.silu(linear(params["w_gate"], xt, "expert-gate", plan,
+                          spec="td,edf->etf"))
+        u = linear(params["w_up"], xt, "expert-up", plan, spec="td,edf->etf")
+        eout = linear(params["w_down"], g * u, "expert-down", plan,
+                      spec="etf,efd->etd")                  # (E, T, d)
+        sel = torch.gather(eout.transpose(0, 1), 1,
+                           expert_ids[:, :, None].expand(T, k, d))
+        yt = _sum_over_k(sel * w[:, :, None])
+    else:
+        # position of each (token, k) assignment within its expert
+        flat_ids = expert_ids.reshape(-1)                    # (T*k,)
+        pos = torch.cumsum(_one_hot(flat_ids, E, torch.int32), dim=0) - 1
+        pos_in_expert = torch.gather(pos, 1, flat_ids[:, None])[:, 0]
+        keep = pos_in_expert < C
+        tok_idx = torch.arange(T, device=x.device).repeat_interleave(k)
+        # scatter tokens into (E, C, d); dropped assignments land in a
+        # spare row C that is cut off (the reference adds zeros at C - 1)
+        buf = torch.zeros((E, C + 1, d), dtype=x.dtype, device=x.device)
+        buf[flat_ids, torch.where(keep, pos_in_expert, C)] = xt[tok_idx]
+        buf = buf[:, :C]
+        g = F.silu(linear(params["w_gate"], buf, "expert-gate", plan,
+                          spec="ecd,edf->ecf"))
+        u = linear(params["w_up"], buf, "expert-up", plan,
+                   spec="ecd,edf->ecf")
+        eout = linear(params["w_down"], g * u, "expert-down", plan,
+                      spec="ecf,efd->ecd")                  # (E, C, d)
+        # gather back with the routing weights (0 for dropped ones)
+        back = eout[flat_ids, torch.where(keep, pos_in_expert, C - 1)]
+        wk = (gate_vals.reshape(-1) * keep).to(x.dtype)
+        yt = _sum_over_k((back * wk[:, None]).reshape(T, k, d))
+    y = yt.reshape(b, l, d)
+
+    if m.n_shared_experts:
+        y = y + swiglu(params["shared"], x, plan, label_prefix="shared")
+
+    # load-balancing aux loss (Switch-style)
+    frac_tokens = _one_hot(expert_ids[:, 0], E, torch.float32).mean(0)
+    frac_probs = probs.mean(0)
+    aux = E * (frac_tokens * frac_probs).sum() * m.router_aux_loss
+    return y, aux

@@ -34,18 +34,57 @@ def dequantize_weight(q, scale, dtype=torch.float32):
     return q.to(dtype) * scale.to(dtype)[..., None, :]
 
 
-def dequant_contract(x, q, scale, *, materialize: bool = False):
+def _epilogue_scale(spec: str, scale):
+    """Permute and reshape a per-output-channel `scale` so it broadcasts
+    against the *output* of `einsum(spec, x, q)`.
+
+    The weight operand's second-to-last letter is the contracted input
+    channel (the (..., K, N) weight convention); every other weight
+    letter carries a scale axis.  Returns None when a scale axis does not
+    survive into the output (the caller then materializes the dequantized
+    weight)."""
+    ins, out = spec.replace(" ", "").split("->")
+    w_spec = ins.split(",")[1]
+    k = w_spec[-2]
+    s_letters = [c for c in w_spec if c != k]      # scale axis order
+    if any(c not in out for c in s_letters):
+        return None
+    s = scale.permute([s_letters.index(c) for c in out if c in s_letters])
+    dims = iter(s.shape)
+    return s.reshape([next(dims) if c in s_letters else 1 for c in out])
+
+
+def dequant_contract(x, q, scale, spec: str | None = None, *,
+                     materialize: bool = False):
     """x · dequant(q, scale) with the per-output-channel scale fused into
     the matmul *epilogue*: contract against the raw int8 weight (cast to
     x.dtype — exact for int8 values) and scale the O(batch·d_out) output,
     instead of materializing the O(K·N) dequantized weight every call.
 
+    `spec` is an optional einsum spec for a stacked weight (MoE experts
+    `"ecd,edf->ecf"`, `"td,edf->etf"`, ...): the scale is permuted into
+    the output's axis order (`_epilogue_scale`); a spec whose scale axis
+    is summed out of the output materializes the weight instead.
     `materialize=True` keeps the canonical `dequantize_weight` expression
     — the parity reference the fused path is tested against."""
     if materialize:
-        return x @ dequantize_weight(q, scale, x.dtype)
+        w = dequantize_weight(q, scale, x.dtype)
+        return torch.einsum(spec, x, w) if spec else x @ w
+    return _contract(x, q.to(x.dtype), scale, spec)
+
+
+def _contract(x, q, scale, spec=None):
+    """x · (q · scale) for a weight q already in x.dtype (int8, unpacked
+    int4 or e4m3 values, all exact there): the scale in the epilogue, or,
+    for a spec whose scale axis is summed out, folded into the weight
+    first."""
     s = scale.to(x.dtype)
-    return (x @ q.to(x.dtype)) * (s if q.ndim == 2 else s[..., None, :])
+    if spec is None:
+        return (x @ q) * (s if q.ndim == 2 else s[..., None, :])
+    se = _epilogue_scale(spec, scale)
+    if se is not None:
+        return torch.einsum(spec, x, q) * se.to(x.dtype)
+    return torch.einsum(spec, x, q * s[..., None, :])
 
 
 def planned_linear(x, w_q, w_scale, use_cim_path: bool):

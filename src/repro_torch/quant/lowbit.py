@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.int8_gemm import int8_gemm
-from .int8 import PROJECTION_WEIGHT_NAMES, quantize_model_params
+from .int8 import PROJECTION_WEIGHT_NAMES, _contract, quantize_model_params
 
 FP8_DTYPE = torch.float8_e4m3fn
 FP8_MAX = 448.0          # e4m3 finite max
@@ -96,20 +96,19 @@ def dequantize_weight_fp8(qf, scale, dtype=torch.float32):
 
 # --- epilogue-fused contractions (as quant.int8.dequant_contract) -----------
 
-def dequant_contract_int4(x, packed, scale):
+def dequant_contract_int4(x, packed, scale, spec: str | None = None):
     """x · dequant(int4) with the scale applied to the output: the nibbles
     are unpacked (a transient int8 (K, N)) and contracted in x.dtype —
-    exact for int4 magnitudes in every float dtype in use."""
+    exact for int4 magnitudes in every float dtype in use.  `spec` as in
+    `quant.int8.dequant_contract`."""
     q = unpack_int4(packed, x.shape[-1]).to(x.dtype)
-    s = scale.to(x.dtype)
-    return (x @ q) * (s if q.ndim == 2 else s[..., None, :])
+    return _contract(x, q, scale, spec)
 
 
-def dequant_contract_fp8(x, qf, scale):
-    """x · dequant(fp8) with the scale applied to the output."""
-    q = qf.to(x.dtype)
-    s = scale.to(x.dtype)
-    return (x @ q) * (s if qf.ndim == 2 else s[..., None, :])
+def dequant_contract_fp8(x, qf, scale, spec: str | None = None):
+    """x · dequant(fp8) with the scale applied to the output; `spec` as in
+    `quant.int8.dequant_contract`."""
+    return _contract(x, qf.to(x.dtype), scale, spec)
 
 
 # --- the kernel routes ------------------------------------------------------

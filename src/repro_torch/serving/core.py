@@ -54,7 +54,7 @@ from ..models import decode_step, init_cache
 from ..models.layers import route_trace
 from ..quant import (PRECISIONS, KernelPlanTable,
                      quantize_model_params_lowbit, strip_model_prefix)
-from .graphs import StepGraph
+from .graphs import StepGraph, leaves
 
 
 def sample_token(cfg: ModelConfig, logits, temperature: float,
@@ -72,17 +72,6 @@ def sample_token(cfg: ModelConfig, logits, temperature: float,
         probs = torch.softmax(last.float() / temperature, dim=-1)
         tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
     return tok[:, None].long()
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    elif torch.is_tensor(tree):
-        yield tree
 
 
 def _meta(tree):
@@ -136,7 +125,7 @@ class DecodeCore:
             raise RuntimeError("DecodeCore runs on 'cuda' by default and this "
                                "torch has no CUDA device; pass device='cpu' "
                                "to run on the CPU")
-        for leaf in _leaves(self.params):
+        for leaf in leaves(self.params):
             if leaf.device.type != self.device.type:
                 raise ValueError(f"params live on {leaf.device}, the core "
                                  f"runs on {self.device}")
@@ -355,7 +344,7 @@ class DecodeCore:
 
 def _cache_key(cache) -> tuple:
     """A cache's identity: the addresses of its tensors."""
-    return tuple(t.data_ptr() for t in _leaves(cache))
+    return tuple(t.data_ptr() for t in leaves(cache))
 
 
 class BatchStep:

@@ -13,6 +13,12 @@ is never freed under the graph).  Temporaries of the step (the INT8
 GEMM's split-K partials, INT4's unpacked weights) come from the graph's
 private memory pool, so their addresses stay fixed.
 
+The warm-up runs `fn` for real, and `fn` updates what it closes over in
+place.  Writing a KV row again is idempotent, but advancing a mamba
+slot's SSM state and conv carry is not, so the tensors of `keep` are
+copied before the warm-up and restored after it: the first call applies
+the step once, as every later replay does.
+
 A capture that fails raises: nothing falls back to running `fn` eagerly.
 
 The kernels' launch counters (`int8_gemm.launches`, `launches_by_design`,
@@ -63,6 +69,19 @@ def _delta(after: list, before: list) -> list:
             for (a, dicts_a), (b, dicts_b) in zip(after, before)]
 
 
+def leaves(tree):
+    """The tensors of a nested dict / list / tuple (a cache or a parameter
+    tree), in order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from leaves(v)
+    elif torch.is_tensor(tree):
+        yield tree
+
+
 def _add(delta: list, sign: int = 1) -> None:
     for w, (n, dicts) in zip(_wrappers(), delta):
         w.launches += sign * n
@@ -97,11 +116,16 @@ class StepGraph:
 
     def _capture(self, inputs) -> None:
         static = [self._static(x) for x in inputs]
+        kept = list(leaves(self.keep))
+        saved = [t.clone() for t in kept]
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             self.fn(*static)                    # warm-up, launched for real
         torch.cuda.current_stream().wait_stream(side)
+        for t, old in zip(kept, saved):         # undo the warm-up's update
+            t.copy_(old)
+        del saved
         graph = torch.cuda.CUDAGraph()
         before = _snapshot()
         try:

@@ -324,12 +324,22 @@ class ContinuousBatchingEngine:
         req.t_submit = self._now()
         self.queue.append(req)
 
+    def _reset_slot_state(self, i: int) -> None:
+        """Zero the joining slot's O(1) caches (mamba state and conv
+        carry) in place: the captured step holds their addresses.
+        Attention needs nothing: stale pool blocks are dead by
+        construction (per-slot lengths mask them, and freed block ids are
+        rewritten before they are read)."""
+        for entry in self.cache:
+            if "state" in entry:
+                entry["state"][:, i].zero_()
+                entry["conv"][:, i].zero_()
+
     def _admit(self) -> None:
         """FIFO admission: the queue head takes the first free slot if
         its full KV horizon fits in the pool (no skipping — head-of-line
-        order keeps TTFT fairness).  A joining slot needs no cache reset:
-        stale pool blocks are dead by construction (per-slot lengths mask
-        them, and freed block ids are rewritten before they are read)."""
+        order keeps TTFT fairness); the slot's O(1) state is zeroed
+        (`_reset_slot_state`)."""
         for i in range(self.n_slots):
             if not self.queue:
                 return
@@ -343,6 +353,7 @@ class ContinuousBatchingEngine:
             self.block_tables[i, :] = 0
             if blocks:
                 self.block_tables[i, :len(blocks)] = blocks
+            self._reset_slot_state(i)
             self.slots[i] = _Slot(req, blocks)
             req.state = "running"
             req.t_admit = self._now()

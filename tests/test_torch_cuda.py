@@ -132,6 +132,24 @@ def test_kernel_matches_plain_full_width(cuda, kn, m, dataflow):
     _check(*_inputs(m, *kn, torch.bfloat16, cuda, seed=m), dataflow, design)
 
 
+# mamba2-780m's narrow gated outputs (ssm-BCdt at K = 1536: w_B / w_C
+# N = 128, w_dt N = 48), below design A's 64-column wgmma tile
+NARROW = [(1536, 48), (1536, 128)]
+
+
+@pytest.mark.parametrize("m,dataflow,design", [(8, "os", "B"), (8, "ws", "B"),
+                                               (2048, "os", "A"),
+                                               (2048, "ws", "B")])
+@pytest.mark.parametrize("kn", NARROW, ids=lambda t: "x".join(map(str, t)))
+def test_kernel_matches_plain_narrow_outputs(cuda, kn, m, dataflow, design):
+    _check(*_inputs(m, *kn, torch.bfloat16, cuda, seed=kn[1]), dataflow,
+           design)
+    x, q, s = _inputs(m, *kn, torch.bfloat16, cuda, seed=kn[1] + 1)
+    got = int8_gemm(x, q, s, out_dtype=torch.bfloat16, dataflow=dataflow)
+    assert torch.equal(got, int8_gemm(x, q, s, dataflow=dataflow).to(
+        torch.bfloat16))
+
+
 FP8_DESIGNS = [(300, 512, 256, torch.bfloat16, "os", "A"),
                (8, 512, 256, torch.bfloat16, "os", "B"),
                (300, 512, 256, torch.bfloat16, "ws", "B"),
@@ -431,7 +449,10 @@ FLASH_CASES = SMOKE_FLASH + [(1, 512, 512, 4, 4, 64, 100),
                              (1, 4096, 4096, 28, 4, 128, 0),
                              # a window with causal that skips tiles at
                              # both ends of the later query blocks
-                             (1, 1024, 1024, 4, 2, 128, 300)]
+                             (1, 1024, 1024, 4, 2, 128, 300),
+                             # qwen2-moe-a2.7b's prefill: 16/16 heads,
+                             # group size 1, at d = 128
+                             (1, 2048, 2048, 16, 16, 128, 0)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -785,3 +806,103 @@ def test_failed_capture_raises_and_never_runs_eagerly(cuda, monkeypatch):
     assert len(calls) == 2                   # the two warm-ups only
     assert core.decode_executables == 0
     torch.cuda.synchronize()                 # the card is still usable
+
+
+# --- the moe, ssm and hybrid families as CUDA graphs -------------------------
+
+FAMILY_ARCHS = ("qwen2-moe-a2.7b", "mamba2-780m", "jamba-1.5-large-398b")
+
+
+def _family_core(arch):
+    """A CUDA DecodeCore over reduced `arch` (bf16, INT8 weights) with every
+    label gated on: the 2-D projections run the GEMM kernel, the experts
+    their dequant einsums."""
+    from repro_torch.serving import DecodeCore
+    cfg = reduced(ARCHS[arch])
+    rc = RunConfig()
+    params = init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                  device="cuda")
+    core = DecodeCore(cfg, rc, params, quantize=True, plan_batch=4,
+                      plan_max_len=24, device="cuda")
+    table = core.plan_table
+    for lab in table.labels:
+        if not table.use_cim(lab):
+            table = table.with_flip(lab)
+    core.plan_table = core.prefill_plan_table = table
+    return cfg, rc, core
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_graphed_family_steps_equal_eager(cuda, arch):
+    """The fixed-batch step and the paged, masked batch step of each new
+    family, replayed from one CUDA graph each, against the eager
+    decode_step on a clone of the cache: logits, KV pools, mamba state
+    and conv carry bit for bit (the mamba entries are updated in place,
+    an inactive slot's left as they were)."""
+    from repro_torch.models import (clone_cache, decode_step, init_cache,
+                                    init_paged_cache)
+    cfg, rc, core = _family_core(arch)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cache = init_cache(cfg, rc, 4, 12, device="cuda")
+    copy = clone_cache(cache)
+    for pos in range(5):
+        tok = torch.randint(0, cfg.vocab, (4, 1), generator=gen,
+                            device="cuda")
+        got, cache = core.step(cache, tok, pos)
+        with torch.inference_mode():
+            want, copy = decode_step(core.params, copy, tok, pos, cfg, rc,
+                                     plan=core.plan_table)
+        assert torch.equal(got, want), pos
+    for ours, ref in zip(cache, copy):
+        for key in ours:
+            assert torch.equal(ours[key], ref[key]), key
+    pools = init_paged_cache(cfg, rc, 3, 12, 4, device="cuda")
+    copy = clone_cache(pools)
+    tables = torch.tensor([[0, 1, 2], [3, 4, 5], [6, 7, 8]],
+                          dtype=torch.int32, device="cuda")
+    for t in range(5):
+        tok = torch.randint(0, cfg.vocab, (3, 1), generator=gen,
+                            device="cuda")
+        pos = torch.tensor([t, t + 2, t], dtype=torch.int32, device="cuda")
+        active = torch.tensor([True, True, t % 2 == 0], device="cuda")
+        got, pools = core.batch_step(pools, tok, pos, active, tables)
+        with torch.inference_mode():
+            want, copy = decode_step(core.params, copy, tok, pos, cfg, rc,
+                                     plan=core.plan_table, active=active,
+                                     block_tables=tables)
+        assert torch.equal(got, want), t
+    for ours, ref in zip(pools, copy):
+        for key in ours:
+            assert torch.equal(ours[key], ref[key]), key
+    assert core.decode_executables == 1
+    assert core.batch_decode_executables == 1
+
+
+@pytest.mark.parametrize("arch", ("mamba2-780m", "jamba-1.5-large-398b"))
+def test_engine_resets_mamba_state_under_the_graph(cuda, arch):
+    """The engine on the card: the same requests run twice through one
+    engine give the same streams, so every joining slot starts from a
+    zeroed state although the slots still hold the first run's (the
+    reset writes in place: the cache keeps its addresses, and the
+    captured steps replay)."""
+    from repro_torch.serving import (ContinuousBatchingEngine, DecodeCore,
+                                     synthetic_requests)
+    cfg = reduced(ARCHS[arch])
+    params = init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                  device="cuda")
+    core = DecodeCore(cfg, RunConfig(), params, quantize=True, plan_batch=8,
+                      plan_max_len=24, device="cuda")
+    eng = ContinuousBatchingEngine(core, n_slots=2, max_len=24, block_size=4)
+    ptrs = [t.data_ptr() for e in eng.cache for t in e.values()]
+    streams = []
+    for _ in range(2):
+        eng.run(synthetic_requests(cfg, 5, seed=4, prompt_len=(2, 5),
+                                   new_tokens=(2, 6)), None)
+        streams.append([[int(t) for t in r.tokens]
+                        for r in eng.completed[-5:]])
+        assert any(bool(e["state"].any()) for e in eng.cache
+                   if "state" in e)
+    assert streams[0] == streams[1]
+    assert [t.data_ptr() for e in eng.cache for t in e.values()] == ptrs
+    assert core.batch_decode_executables == len(
+        {core.plan_table, core.prefill_plan_table})

@@ -163,6 +163,6 @@ def test_forward_unported_paths_raise():
     tokens = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="cross attention"):
         forward(params, tokens, tcfg, trc, image_embeds=torch.zeros(1, 2, 64))
-    mamba = reduced(ARCHS["mamba2-780m"])
-    with pytest.raises(NotImplementedError):
-        forward(params, tokens, mamba, trc)
+    for arch in ("llama-3.2-vision-90b", "musicgen-large"):
+        with pytest.raises(NotImplementedError, match="The other families"):
+            forward(params, tokens, reduced(ARCHS[arch]), trc)
