@@ -6,16 +6,18 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It drives the port's main paths on the card: the planner-gated serving of
-qwen2-7b, qwen2-moe-a2.7b and mamba2-780m at full width (random weights
-from a seed; jamba-1.5-large-398b's mixed attention / mamba, dense / MoE
-period at reduced size), for qwen2-7b with INT8,
+qwen2-7b, qwen2-moe-a2.7b, mamba2-780m and musicgen-large at full width
+and depth and llama-3.2-vision-90b at full width, 10 of its 100 layers
+deep (random weights from a seed; jamba-1.5-large-398b's mixed
+attention / mamba, dense / MoE period at reduced size), for qwen2-7b with INT8,
 FP8 and INT4 weights and with the int8 KV cache, each step a replayed
 CUDA graph, its continuous batching (32 ragged requests through the
 paged, slot-masked engine, also adaptive and with the int8 KV pool) and
 its serving CLI, its prefill forward (one
 2048-token prompt through the flash-attention kernel) with INT8 and FP8
-weights, and the batched What/When/Where sweep with its design-space
-campaigns.  In order it:
+weights, the batched What/When/Where sweep with its design-space
+campaigns, and the paper's own experiments on the sweep kernel.  In
+order it:
 
 1. prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions and the TF32 switches (both off);
@@ -170,7 +172,35 @@ campaigns.  In order it:
 26. runs `python -m repro_torch.launch.serve --arch mamba2-780m --smoke
    --batch 8 --quantize` as a subprocess: exit 0, a JSON report, and at
    least one label (ssm-BCdt) on the kernel;
-27. prints one JSON line of kernel numbers, the card line, and last
+27. holds the INT8 GEMM at every 2-D projection shape of musicgen-large
+   and of llama-3.2-vision at M = 8 and 2048, and at the vlm's xattn-KV
+   shape (M = 1601 image tokens, K = 8192, N = 1024: design A with a
+   masked tail), and flash at musicgen's (1, 2048, 32/32, 64), the first
+   model path at d_head 64, against its plain version and SDPA; then
+   serves musicgen-large at full size (48 layers, 4 codebooks, seed 0,
+   INT8, gated, batch 8, (b, 1, 4) tokens, 16 + 16 steps) with the checks
+   of phase 19 (its per-codebook lm_head on the dequant einsum), runs its
+   (1, 2048) prefill with attn_impl="pallas" (48 flash launches on d_head
+   64, logits against `flash_jnp`) and the engine on 16 audio requests;
+28. holds flash at the vlm's (1, 2048, 64/8, 128), then serves
+   llama-3.2-vision-90b at full width cut to VLM_LAYERS = 10 layers (two
+   periods: 8 self- and 2 cross-attention layers; printed as reduced:
+   all 100 layers are ~86 GB at int8 and do not fit one card beside
+   their bf16 draw) with 1601 image tokens of image K/V per cross slot
+   (never filled, as in the JAX package), with the checks of phase 19;
+   runs its prefill with image embeddings from seed 5 (xattn-KV on design
+   A at M = 1601, 8 flash launches, logits against `flash_jnp`); and
+   checks that the continuous engine refuses a vlm core, as the JAX
+   package's does;
+29. runs `launch/paper.py`'s seven artefacts (Figs. 2, 7 + Table II, 9,
+   10, 11/12, 13 and Table VI) on the card with backend "vectorized" and
+   "pallas", each on a fresh engine: rows and derived metrics equal
+   (runtime fields aside), the sweep kernel launched (counted from 0 over
+   the pallas run) and not by the vectorized run, the two checks of
+   docs/reproducing-paper-figures.md, and `python -m
+   repro_torch.launch.paper --backend pallas --out runs/paper` as a
+   subprocess;
+30. prints one JSON line of kernel numbers, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Phase 9 also holds the graphs: the serve's steps replay CUDA graphs
@@ -182,17 +212,18 @@ steps; phases 12, 13 and 15 replay graphs too (replays credit the
 launch counts).
 
 Each kernel's launch count in that line comes from its own main path
-(for sweep_eval, which has two entries: the default-grid campaign and
-the adaptive engine run; for int8_gemm, which has fifteen entries, each
-with its design and weight format: the gated INT8 serve, the INT8
-prefill forward, the 197 calls of one decode step through
-`ops.int8_matmul(dataflow="ws")`, the same three with FP8 weights, the
-gated INT4 serve, the continuous engine's all-at-once run, and for
-qwen2-moe-a2.7b and mamba2-780m each the serve, the prefill forward and
-the engine, and reduced jamba's serve and engine; the qwen2-7b and the
-qwen2-moe-a2.7b prefill forwards for flash_attention; one call of the
-public wrapper for decode_attention), counted from 0 just before that
-path ran.
+(for sweep_eval, which has three entries: the default-grid campaign,
+the adaptive engine run and the paper's artefacts; for int8_gemm, which
+has twenty entries, each with its design and weight format: the gated
+INT8 serve, the INT8 prefill forward, the 197 calls of one decode step
+through `ops.int8_matmul(dataflow="ws")`, the same three with FP8
+weights, the gated INT4 serve, the continuous engine's all-at-once run,
+for qwen2-moe-a2.7b, mamba2-780m and musicgen-large each the serve, the
+prefill forward and the engine, for the vlm the serve and the prefill
+forward, and reduced jamba's serve and engine; the qwen2-7b,
+qwen2-moe-a2.7b, musicgen-large and vlm prefill forwards for
+flash_attention; one call of the public wrapper for decode_attention),
+counted from 0 just before that path ran.
 
 Any failed phase raises and exits non-zero; so does a machine with no
 CUDA device or a directory without the port.
@@ -700,12 +731,22 @@ FAM_FLASH_CASES = [(1, PREFILL, PREFILL, 16, 16, 128, 0)]
 FAM_SLOTS, FAM_BLOCK, FAM_MAX_LEN, FAM_REQUESTS = 8, 16, 65, 16
 SSM_CHECK = 512          # mamba2 positions held decode-vs-forward (2 chunks)
 FREED_GIB = 4.0          # allocated before the families' weights, at most
+# --- the audio and vlm families (phases 27-28) ---
+AUDIO_ARCH = "musicgen-large"         # full width and depth
+VLM_ARCH = "llama-3.2-vision-90b"     # full width, VLM_LAYERS deep
+VLM_LAYERS = 10          # two periods: 8 self-attention + 2 cross layers
+# musicgen's prefill attention (32/32 heads at d 64) and the vlm's (64/8)
+AUDIO_FLASH_CASES = [(1, PREFILL, PREFILL, 32, 32, 64, 0)]
+VLM_FLASH_CASES = [(1, PREFILL, PREFILL, 64, 8, 128, 0)]
 
 
 def projection_calls(cfg, period_slots, n_periods) -> list[tuple]:
     """(label, K, N, calls per decode step) of the 2-D projections of one
     step: every call the GEMM kernel can take (the MoE experts are
-    stacked (E, K, N) leaves and never take it)."""
+    stacked (E, K, N) leaves and never take it, nor does an audio model's
+    per-codebook (nb, d, vocab) head, contracted by a spec).  A cross
+    slot's decode step projects its query and output only; its image K/V
+    are projected in the prefill forward (`image_kv_calls`)."""
     d, L = cfg.d_model, n_periods(cfg)
     nh, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
     out = []
@@ -713,6 +754,8 @@ def projection_calls(cfg, period_slots, n_periods) -> list[tuple]:
         if slot.mixer == "attn":
             out += [("Wq", d, nh * dh, L), ("Wk", d, kvh * dh, L),
                     ("Wv", d, kvh * dh, L), ("Wo", nh * dh, d, L)]
+        elif slot.mixer == "cross":
+            out += [("xattn-Q", d, nh * dh, L), ("xattn-out", nh * dh, d, L)]
         else:
             s = cfg.ssm
             di, g = s.d_inner(d), s.n_groups * s.d_state
@@ -727,8 +770,21 @@ def projection_calls(cfg, period_slots, n_periods) -> list[tuple]:
             sf = cfg.moe.shared_d_ff
             out += [("shared-gate", d, sf, L), ("shared-up", d, sf, L),
                     ("shared-down", sf, d, L)]
-    out.append(("lm_head", d, cfg.vocab, 1))
+    if cfg.family != "audio":
+        out.append(("lm_head", d, cfg.vocab, 1))
     return out
+
+
+def image_kv_calls(cfg, period_slots, n_periods, batch: int) -> list[tuple]:
+    """(label, K, N, calls, M) of the prefill forward's image K/V
+    projections: wk and wv of each cross layer on the batch's image
+    tokens, M = batch x n_image_tokens rows."""
+    n_cross = n_periods(cfg) * sum(s.mixer == "cross"
+                                   for s in period_slots(cfg))
+    if not n_cross:
+        return []
+    return [("xattn-KV", cfg.d_model, cfg.n_kv_heads * cfg.head_dim(),
+             2 * n_cross, batch * cfg.vision.n_image_tokens)]
 
 
 def f32_tree(tree):
@@ -747,17 +803,18 @@ def gated_calls(calls, table) -> list[tuple]:
 
 
 def per_path(rows: dict, calls, m: int) -> dict:
-    """The kernel's numbers summed over `calls` (label, K, N, count) at M =
-    m, each shape's row times its count, as per_call_sum does for the
-    qwen2-7b paths."""
-    out = {key: sum(cnt * rows[(m, k, n)][key] for _, k, n, cnt in calls)
+    """The kernel's numbers summed over `calls` (label, K, N, count[, M])
+    at M = m (or the call's own M), each shape's row times its count, as
+    per_call_sum does for the qwen2-7b paths."""
+    keyed = [((c[4] if len(c) > 4 else m, c[1], c[2]), c[3]) for c in calls]
+    out = {key: sum(cnt * rows[mkn][key] for mkn, cnt in keyed)
            for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                        "bytes_ms", "ops_ms", "device_ms",
                        "library_device_ms")}
-    out["design"] = "+".join(sorted({rows[(m, k, n)]["design"]
-                                     for _, k, n, _ in calls}))
-    out["max_abs_err"] = max((rows[(m, k, n)]["max_abs_err"]
-                              for _, k, n, _ in calls), default=0.0)
+    out["design"] = "+".join(sorted({rows[mkn]["design"]
+                                     for mkn, _ in keyed}))
+    out["max_abs_err"] = max((rows[mkn]["max_abs_err"] for mkn, _ in keyed),
+                             default=0.0)
     return out
 
 
@@ -766,6 +823,7 @@ def families(torch, card: str) -> list[dict]:
     module docstring).  Returns their entries of the kernels line."""
     import gc
 
+    import numpy as np
     from repro_torch.configs import ARCHS, RunConfig, reduced
     from repro_torch.kernels import ops
     from repro_torch.kernels.int8_gemm import (int8_gemm, int8_gemm_ref,
@@ -778,6 +836,7 @@ def families(torch, card: str) -> list[dict]:
     from repro_torch.serving import (ContinuousBatchingEngine, DecodeCore,
                                      ServeSession, make_prefill,
                                      make_serve_step, synthetic_requests)
+    from repro_torch.serving.core import token_shape
     fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
     flash = fa_mod.flash_attention
     rc = RunConfig()
@@ -805,41 +864,57 @@ def families(torch, card: str) -> list[dict]:
     cases = sorted({(m, k, n) for a in (MOE_ARCH, SSM_ARCH)
                     for m in (BATCH, PREFILL) for _, k, n, _ in calls[a]})
     cases += sorted({(BATCH, k, n) for _, k, n, _ in calls[HYBRID_ARCH]})
-    rows = {}
-    for m, k, n in cases:
-        r = check_kernel(torch, int8_gemm, int8_gemm_ref, m, k, n,
-                         torch.bfloat16)
-        want = plan_gemm(m, n, k).design
-        r["ok"] = r["ok"] and r["design"] == want
-        rows[(m, k, n)] = r
-        print(f"int8_gemm (families) M={m} K={k} N={n} bf16 design "
-              f"{r['design']} (planned {want}): max|d|={r['max_abs_err']!r} "
-              f"max|d|/max|ref|={r['max_rel_err']!r} (tol {TOL}), bf16 "
-              f"output == f32 output cast {r['out_cast_equal']} "
-              f"{'ok' if r['ok'] else 'FAIL'} | kernel {r['ms']!r} ms, bound "
-              f"{r['bound_ms']!r} ms ({r['bound_ms'] / r['ms']:.1%}), plain "
-              f"{r['plain_ms']!r} ms, library_ms {r['library_ms']!r} ms "
-              f"(CUDA events); device: kernel {r['device_ms']!r} ms, "
-              f"library {r['library_device_ms']!r} ms [{card}]")
-    bad = [r for r in rows.values() if not r["ok"]]
-    if bad:
-        raise RuntimeError(f"int8_gemm disagrees with its plain version at "
-                           f"the families' shapes: {bad}")
-    frows = check_flash(torch, ops, fa_mod, FAM_FLASH_CASES)
-    for r in frows:
-        print(f"flash_attention (families) (b, sq, sk, H, KV, d, window, "
-              f"dtype) = {r['case']}, design {r['design']}: max|d|="
-              f"{r['max_abs_err']!r}, max |d|/bound={r['worst']!r} "
-              f"{'ok' if r['ok'] else 'FAIL'}")
-    flash_design = {"bfloat16": "wgmma", "float32": "fma"}
-    if not all(r["ok"] and r["design"] == flash_design[r["case"][-1]]
-               for r in frows):
-        raise RuntimeError(f"flash_attention at 16/16 heads disagrees with "
-                           f"its plain version ({ATTN_TOL_DOC}): {frows}")
-    _, _, _, fh, fkv, fdh, _ = FAM_FLASH_CASES[0]
-    ft = time_flash(torch, ops, fa_mod, fh, fkv, fdh)
-    print(f"flash_attention timing at (1, {PREFILL}, {fh}/{fkv}, {fdh}) bf16 "
-          f"causal ({MOE_ARCH}'s prefill layer): {ft['line']} [{card}]")
+    def kernel_rows(cases, what) -> dict:
+        """check_kernel at each (M, K, N) of `cases` (bf16 x), each row
+        checked for the design plan_gemm plans; raises on a bad row."""
+        out = {}
+        for m, k, n in cases:
+            r = check_kernel(torch, int8_gemm, int8_gemm_ref, m, k, n,
+                             torch.bfloat16)
+            want = plan_gemm(m, n, k).design
+            r["ok"] = r["ok"] and r["design"] == want
+            out[(m, k, n)] = r
+            print(f"int8_gemm ({what}) M={m} K={k} N={n} bf16 design "
+                  f"{r['design']} (planned {want}): max|d|="
+                  f"{r['max_abs_err']!r} max|d|/max|ref|="
+                  f"{r['max_rel_err']!r} (tol {TOL}), bf16 output == f32 "
+                  f"output cast {r['out_cast_equal']} "
+                  f"{'ok' if r['ok'] else 'FAIL'} | kernel {r['ms']!r} ms, "
+                  f"bound {r['bound_ms']!r} ms "
+                  f"({r['bound_ms'] / r['ms']:.1%}), plain "
+                  f"{r['plain_ms']!r} ms, library_ms {r['library_ms']!r} ms "
+                  f"(CUDA events); device: kernel {r['device_ms']!r} ms, "
+                  f"library {r['library_device_ms']!r} ms [{card}]")
+        bad = [r for r in out.values() if not r["ok"]]
+        if bad:
+            raise RuntimeError(f"int8_gemm disagrees with its plain version "
+                               f"at the {what} shapes: {bad}")
+        return out
+
+    def flash_rows(cases, what) -> tuple[list, dict]:
+        """check_flash on `cases` (each in both dtypes, each row on its
+        dtype's design), then time_flash at the first case's heads."""
+        frows = check_flash(torch, ops, fa_mod, cases)
+        for r in frows:
+            print(f"flash_attention ({what}) (b, sq, sk, H, KV, d, window, "
+                  f"dtype) = {r['case']}, design {r['design']}: max|d|="
+                  f"{r['max_abs_err']!r}, max |d|/bound={r['worst']!r} "
+                  f"{'ok' if r['ok'] else 'FAIL'}")
+        flash_design = {"bfloat16": "wgmma", "float32": "fma"}
+        if not all(r["ok"] and r["design"] == flash_design[r["case"][-1]]
+                   for r in frows):
+            raise RuntimeError(f"flash_attention at the {what} shapes "
+                               f"disagrees with its plain version "
+                               f"({ATTN_TOL_DOC}): {frows}")
+        _, _, _, fh, fkv, fdh, _ = cases[0]
+        ft = time_flash(torch, ops, fa_mod, fh, fkv, fdh)
+        ft["heads"] = (fh, fkv, fdh)
+        print(f"flash_attention timing at (1, {PREFILL}, {fh}/{fkv}, {fdh}) "
+              f"bf16 causal ({what}'s prefill layer): {ft['line']} [{card}]")
+        return frows, ft
+
+    rows = kernel_rows(cases, "families")
+    frows, ft = flash_rows(FAM_FLASH_CASES, MOE_ARCH)
 
     def check_routes(sess, cfg_calls):
         """A 2-D label runs the kernel exactly when the decode table gates
@@ -878,9 +953,15 @@ def families(torch, card: str) -> list[dict]:
         finally:
             torch.topk = real
 
-    def serve(cfg, cfg_calls, what):
-        """Phases 19 and 22: the INT8-gated fixed-batch serve, graphed, with
-        its checks.  Returns the session and its numbers."""
+    def tok_shape(cfg, b: int, n: int) -> tuple:
+        """b x n tokens, audio (b, n, nb)."""
+        return (b, n) + token_shape(cfg, b)[2:]
+
+    def serve(cfg, cfg_calls, what, n_img=0):
+        """Phases 19, 22, 25, 27 and 28: the INT8-gated fixed-batch serve,
+        graphed, with its checks (a vlm session holds n_img image tokens
+        of image K/V per cross slot).  Returns the session and its
+        numbers."""
         t0 = time.perf_counter()
         params = init(torch.Generator(device="cuda").manual_seed(0), cfg,
                       device="cuda")
@@ -888,7 +969,7 @@ def families(torch, card: str) -> list[dict]:
         t_init = time.perf_counter() - t0
         t0 = time.perf_counter()
         sess = ServeSession(cfg, rc, params, max_len=max_len, batch=BATCH,
-                            quantize=True)
+                            n_image_tokens=n_img, quantize=True)
         del params
         free()
         print(f"{what} serve: {cfg.name} ({cfg.n_layers} layers, d_model "
@@ -902,7 +983,7 @@ def families(torch, card: str) -> list[dict]:
         n_pre = gated_calls(cfg_calls, sess.prefill_plan_table)
         expected = (PROMPT * sum(c[3] for c in n_pre)
                     + NEW * sum(c[3] for c in n_dec))
-        prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT),
+        prompt = torch.randint(0, cfg.vocab, tok_shape(cfg, BATCH, PROMPT),
                                generator=torch.Generator().manual_seed(1)
                                ).to("cuda")
         sess.generate(prompt[:, :2], 1)     # warm-up and captures
@@ -935,7 +1016,7 @@ def families(torch, card: str) -> list[dict]:
         if sess.decode_executables != 1 or sess.prefill_executables != 1:
             raise RuntimeError(f"{what} serve captured its steps more than "
                                f"once")
-        if tokens.shape != (BATCH, NEW) or not bool(
+        if tokens.shape != tok_shape(cfg, BATCH, NEW) or not bool(
                 ((tokens >= 0) & (tokens < cfg.vocab)).all()):
             raise RuntimeError(f"bad token stream {tokens.shape}")
         bitwise = graphed_vs_eager(torch, sess, prompt, 5)
@@ -945,7 +1026,8 @@ def families(torch, card: str) -> list[dict]:
             raise RuntimeError(f"{what}: a replayed step is not the eager "
                                f"step")
         ungated = ServeSession(cfg, rc, sess.params, max_len=max_len,
-                               batch=BATCH, quantize=True, gated=False)
+                               batch=BATCH, n_image_tokens=n_img,
+                               quantize=True, gated=False)
         if any(r["route"] == CIM_ROUTE
                for r in ungated.route_report().values()):
             raise RuntimeError("the ungated session routes a label to the "
@@ -975,7 +1057,8 @@ def families(torch, card: str) -> list[dict]:
                              (cfg, sess.params, ungated.prefill_plan_table),
                              (f32cfg, f32_tree(sess.params),
                               ungated.prefill_plan_table)):
-            cache = init_cache(c, rc, BATCH, max_len, device="cuda")
+            cache = init_cache(c, rc, BATCH, max_len, device="cuda",
+                               n_image_tokens=n_img)
             with pinned_routing(ids), torch.inference_mode():
                 runs.append(make_serve_step(c, rc, table)(
                     p_, cache, prompt[:, :1], 0)[0].float())
@@ -987,6 +1070,8 @@ def families(torch, card: str) -> list[dict]:
         # bf16 model may sit farther from f32 than LOGIT_TOL on either
         bound = max(LOGIT_TOL * ref_max, diffs[1])
         agree = int((runs[0].argmax(-1) == runs[1].argmax(-1)).sum())
+        # tokens per lane: one, or one per codebook
+        per_lane = runs[0].argmax(-1).numel() // BATCH
         print(f"{what} serve ungated: {1e3 * t_ungated / steps!r} ms/step, 0 "
               f"int8_gemm launches, greedy streams equal on "
               f"{int((tokens == ungated_tokens).all(1).sum())} of {BATCH} "
@@ -997,9 +1082,10 @@ def families(torch, card: str) -> list[dict]:
               f"{(runs[0] - runs[1]).abs().max().item()!r}, max|f32|="
               f"{ref_max!r}: the gated route within max({LOGIT_TOL}·max|f32|"
               f", the ungated route's max|d|) = {bound!r}; greedy tokens "
-              f"agree on {agree} of {BATCH} (need {MIN_TOKEN_AGREEMENT})")
+              f"agree on {agree} of {BATCH * per_lane} (need "
+              f"{MIN_TOKEN_AGREEMENT * per_lane})")
         if not all(bool(torch.isfinite(t).all()) for t in (lg, lu, *runs)) \
-                or diffs[0] > bound or agree < MIN_TOKEN_AGREEMENT:
+                or diffs[0] > bound or agree < MIN_TOKEN_AGREEMENT * per_lane:
             raise RuntimeError(f"{what}: the first-step logits of the two "
                                f"routes disagree")
         del ungated
@@ -1007,28 +1093,30 @@ def families(torch, card: str) -> list[dict]:
                                               f"{what} gated", card)
         return sess, out
 
-    def prefill_forward(cfg, cfg_calls, params, what, attn_layers):
-        """Phases 20 and 23: the (1, PREFILL) forward under the prefill
-        table of a core planned at batch 8 and length PREFILL, with
-        attn_impl="pallas"; launches held against the route trace and
-        plan_gemm's designs.  Returns the core, the prompt, the logits
-        and the numbers."""
+    def prefill_forward(cfg, cfg_calls, params, what, attn_layers,
+                        image=None):
+        """Phases 20, 23, 27 and 28: the (1, PREFILL) forward under the
+        prefill table of a core planned at batch 8 and length PREFILL,
+        with attn_impl="pallas" (a vlm's cross slots on `image`);
+        launches held against the route trace and plan_gemm's designs (a
+        call (label, K, N, count, M) runs at its own M).  Returns the
+        core, the prompt, the logits and the numbers."""
         prc = RunConfig(attn_impl="pallas")
         core = DecodeCore(cfg, prc, params, quantize=True, plan_batch=BATCH,
                           plan_max_len=PREFILL, device="cuda")
         ptable = core.prefill_plan_table
         run = make_prefill(cfg, prc, ptable)
-        prompt = torch.randint(0, cfg.vocab, (1, PREFILL),
+        prompt = torch.randint(0, cfg.vocab, tok_shape(cfg, 1, PREFILL),
                                generator=torch.Generator().manual_seed(2)
                                ).to("cuda")
-        run(core.params, prompt)                         # warm-up
+        run(core.params, prompt, image)                  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts(flash)
         reset_counts(int8_gemm)
         with route_trace() as records:
             t0 = time.perf_counter()
-            logits = run(core.params, prompt)
+            logits = run(core.params, prompt, image)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         out = {"launches": int8_gemm.launches,
@@ -1039,8 +1127,9 @@ def families(torch, card: str) -> list[dict]:
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                "calls": gated_calls(cfg_calls, ptable)}
         want = {d: 0 for d in out["by_design"]}
-        for _, k, n, cnt in out["calls"]:
-            want[plan_gemm(PREFILL, n, k).design] += cnt
+        for c in out["calls"]:
+            m = c[4] if len(c) > 4 else PREFILL
+            want[plan_gemm(m, c[2], c[1]).design] += c[3]
         n_cim = sum(r["route"] == CIM_ROUTE for r in records)
         print(f"{what} prefill forward: 1 x {PREFILL} tokens in {wall!r} s "
               f"({PREFILL / wall!r} prefill tokens/s), peak memory "
@@ -1056,10 +1145,10 @@ def families(torch, card: str) -> list[dict]:
                 out["flash_by_design"]["wgmma"] != attn_layers):
             raise RuntimeError(f"{what} prefill launched flash_attention "
                                f"{out['flash_by_design']}")
-        if logits.shape != (1, PREFILL, cfg.vocab) or not bool(
+        if logits.shape != prompt.shape + (cfg.vocab,) or not bool(
                 torch.isfinite(logits).all()):
             raise RuntimeError(f"bad prefill logits {tuple(logits.shape)}")
-        prof = profile_window(torch, lambda: run(core.params, prompt))
+        prof = profile_window(torch, lambda: run(core.params, prompt, image))
         if prof["busy_ms"] > 0:
             a_us = sum(us for name, us in prof["kernels"]
                        if "int8_gemm" in name)
@@ -1125,7 +1214,8 @@ def families(torch, card: str) -> list[dict]:
               f"(new {core.batch_decode_executables - caps0}) [{card}]")
         if len(done) != FAM_REQUESTS or any(
                 len(r.tokens) != r.max_new_tokens
-                or not all(0 <= int(t) < cfg.vocab for t in r.tokens)
+                or not ((np.asarray(r.tokens) >= 0).all()
+                        and (np.asarray(r.tokens) < cfg.vocab).all())
                 for r in done):
             raise RuntimeError(f"{what} engine did not complete every "
                                f"request with its max_new_tokens")
@@ -1135,8 +1225,8 @@ def families(torch, card: str) -> list[dict]:
                                f"{out['launches']} times, expected "
                                f"{expected}, or captured again")
         gen = torch.Generator(device="cuda").manual_seed(3)
-        tok = torch.randint(0, cfg.vocab, (FAM_SLOTS, 1), generator=gen,
-                            device="cuda")
+        tok = torch.randint(0, cfg.vocab, tok_shape(cfg, FAM_SLOTS, 1),
+                            generator=gen, device="cuda")
         pos = torch.tensor([0, 5, 17, 31, 40, 63, 2, 50], dtype=torch.int32,
                            device="cuda")
         active = torch.tensor([1, 1, 1, 0, 1, 1, 0, 1], dtype=torch.bool,
@@ -1161,7 +1251,7 @@ def families(torch, card: str) -> list[dict]:
                                f"eager step")
         del copy, got, want
         if check_reset:
-            first = {r.rid: [int(t) for t in r.tokens] for r in done}
+            first = {r.rid: np.asarray(r.tokens).tolist() for r in done}
             zeroed = []
             reset = eng._reset_slot_state
 
@@ -1176,7 +1266,7 @@ def families(torch, card: str) -> list[dict]:
                                        prompt_len=(8, 32),
                                        new_tokens=(8, 32)), None)
             del eng._reset_slot_state
-            again = {r.rid: [int(t) for t in r.tokens]
+            again = {r.rid: np.asarray(r.tokens).tolist()
                      for r in eng.completed[-FAM_REQUESTS:]}
             print(f"{what} engine, the same requests again: {len(zeroed)} "
                   f"slot resets, the largest |state| or |conv| of a joining "
@@ -1329,6 +1419,95 @@ def families(torch, card: str) -> list[dict]:
             report["gating"]["cim_routed"] < 1):
         raise RuntimeError("the mamba2 serving CLI's report is wrong")
 
+    # --- 27. musicgen-large at full size ------------------------------------
+    aud_cfg = ARCHS[AUDIO_ARCH]
+    vlm_cfg = dataclasses.replace(ARCHS[VLM_ARCH], n_layers=VLM_LAYERS)
+    n_img = vlm_cfg.vision.n_image_tokens
+    for a, c in ((AUDIO_ARCH, aud_cfg), (VLM_ARCH, vlm_cfg)):
+        calls[a] = projection_calls(c, period_slots, n_periods)
+    kv_calls = image_kv_calls(vlm_cfg, period_slots, n_periods, 1)
+    rows.update(kernel_rows(
+        sorted({(m, k, n) for a in (AUDIO_ARCH, VLM_ARCH)
+                for m in (BATCH, PREFILL) for _, k, n, _ in calls[a]}
+               | {(c[4], c[1], c[2]) for c in kv_calls}),
+        "audio and vlm"))
+    aud_frows, aud_ft = flash_rows(AUDIO_FLASH_CASES, AUDIO_ARCH)
+
+    def against_flash_jnp(cfg, core, prompt, lp, what, image=None):
+        """The kernel route's prefill logits `lp` against the same forward
+        with attn_impl="flash_jnp" (plain torch attention) within
+        LOGIT_TOL·max|ref|."""
+        lr = make_prefill(cfg, RunConfig(attn_impl="flash_jnp"),
+                          core.prefill_plan_table)(core.params, prompt, image)
+        diff = (lp.float() - lr.float()).abs().max().item()
+        ref_max = lr.float().abs().max().item()
+        agree = (lp.argmax(-1) == lr.argmax(-1)).float().mean().item()
+        print(f"{what} prefill logits, flash kernel vs attn_impl='flash_jnp'"
+              f" (plain torch attention): max|d|={diff!r}, max|ref|="
+              f"{ref_max!r} (tol {LOGIT_TOL}·max|ref|), greedy tokens agree "
+              f"at {agree:.2%}")
+        if diff > LOGIT_TOL * ref_max:
+            raise RuntimeError(f"{what} prefill disagrees with flash_jnp")
+
+    aud_sess, aud_serve = serve(aud_cfg, calls[AUDIO_ARCH], AUDIO_ARCH)
+    aud_core, prompt_, lp, aud_pre = prefill_forward(
+        aud_cfg, calls[AUDIO_ARCH], aud_sess.params, AUDIO_ARCH,
+        n_periods(aud_cfg))
+    against_flash_jnp(aud_cfg, aud_core, prompt_, lp, AUDIO_ARCH)
+    del aud_core, prompt_, lp
+    free()
+    eng_core = DecodeCore(aud_cfg, rc, aud_sess.params, quantize=True,
+                          plan_batch=FAM_SLOTS, plan_max_len=FAM_MAX_LEN,
+                          device="cuda")
+    aud_eng = engine(eng_core, aud_cfg, calls[AUDIO_ARCH], AUDIO_ARCH)
+    del eng_core, aud_sess
+    free()
+
+    # --- 28. llama-3.2-vision at full width, two periods deep ------------------
+    vlm_frows, vlm_ft = flash_rows(VLM_FLASH_CASES, VLM_ARCH)
+    d, dh = vlm_cfg.d_model, vlm_cfg.head_dim()
+    # a self- or cross-attention layer: wq, wo, wk, wv and the MLP
+    layer_params = (2 * d * vlm_cfg.n_heads * dh
+                    + 2 * d * vlm_cfg.n_kv_heads * dh + 3 * d * vlm_cfg.d_ff)
+    full = ARCHS[VLM_ARCH].n_layers * layer_params
+    what = f"{VLM_ARCH} (reduced: {VLM_LAYERS} of its 100 layers)"
+    print(f"{what}: full width (d_model {vlm_cfg.d_model}, "
+          f"{vlm_cfg.n_heads}/{vlm_cfg.n_kv_heads} heads, d_ff "
+          f"{vlm_cfg.d_ff}, vocab {vlm_cfg.vocab}, a cross layer every "
+          f"{vlm_cfg.vision.cross_attn_every}, {n_img} image tokens), cut to "
+          f"{VLM_LAYERS} layers (8 self-attention + 2 cross): "
+          f"{layer_params / 1e6:.0f} M parameters a layer, "
+          f"{VLM_LAYERS * layer_params / 1e9:.2f} B for {VLM_LAYERS} layers "
+          f"plus {2 * vlm_cfg.vocab * vlm_cfg.d_model / 1e9:.2f} B of "
+          f"embedding and head, drawn in bf16 before quantization; all 100 "
+          f"layers would be {full / 1e9:.1f} GB at int8 and do not fit one "
+          f"card beside their bf16 draw")
+    vlm_sess, vlm_serve = serve(vlm_cfg, calls[VLM_ARCH], what, n_img=n_img)
+    image = torch.randn((1, n_img, vlm_cfg.d_model), generator=torch.Generator(
+        device="cuda").manual_seed(5), device="cuda").to(torch.bfloat16)
+    n_self = n_periods(vlm_cfg) * sum(sl.mixer == "attn"
+                                      for sl in period_slots(vlm_cfg))
+    vlm_core, prompt_, lp, vlm_pre = prefill_forward(
+        vlm_cfg, calls[VLM_ARCH] + kv_calls, vlm_sess.params, what, n_self,
+        image=image)
+    kv_m = kv_calls[0][4]
+    print(f"{what} prefill: xattn-KV {kv_calls[0][3]} calls at M = {kv_m} "
+          f"(not a multiple of 128: design "
+          f"{plan_gemm(kv_m, kv_calls[0][2], kv_calls[0][1]).design} with a "
+          f"masked tail)")
+    against_flash_jnp(vlm_cfg, vlm_core, prompt_, lp, what, image)
+    del vlm_core, prompt_, lp, image
+    free()
+    try:
+        ContinuousBatchingEngine(vlm_sess.core, n_slots=FAM_SLOTS,
+                                 max_len=FAM_MAX_LEN, block_size=FAM_BLOCK)
+    except NotImplementedError as e:
+        print(f"{what} engine: refused, as the JAX package's is ({e})")
+    else:
+        raise RuntimeError("the engine took a vlm core")
+    del vlm_sess
+    free()
+
     # --- the families' entries of the kernels line -------------------------
     def entry(agg, launches, path, work):
         return {"name": "int8_gemm", "route": "cuda",
@@ -1346,48 +1525,138 @@ def families(torch, card: str) -> list[dict]:
                 "work": work}
     out = []
     for arch, srv, pre, eng_ in ((MOE_ARCH, moe_serve, moe_pre, moe_eng),
-                                 (SSM_ARCH, ssm_serve, ssm_pre, ssm_eng)):
+                                 (SSM_ARCH, ssm_serve, ssm_pre, ssm_eng),
+                                 (AUDIO_ARCH, aud_serve, aud_pre, aud_eng),
+                                 (VLM_ARCH, vlm_serve, vlm_pre, None)):
         dec = per_path(rows, srv["decode_calls"], BATCH)
         n = sum(c[3] for c in srv["decode_calls"])
+        cut = f" ({VLM_LAYERS} layers)" if arch == VLM_ARCH else ""
         out += [
-            entry(dec, srv["launches"], f"{arch} decode step",
+            entry(dec, srv["launches"], f"{arch}{cut} decode step",
                   f"the {n} gated calls of one {arch} decode step at batch "
                   f"{BATCH} (per-shape times x calls); launches counted over "
                   f"the gated serve's {steps} steps"),
             entry(per_path(rows, pre["calls"], PREFILL), pre["launches"],
-                  f"{arch} prefill forward",
+                  f"{arch}{cut} prefill forward",
                   f"the gated calls of one {arch} prefill forward at M = "
-                  f"{PREFILL}; launches counted over one forward"),
-            entry(dec, eng_["launches"], f"{arch} continuous batching",
-                  f"the {n} gated calls of one {arch} decode step at M = "
-                  f"{FAM_SLOTS} slots; launches counted over the "
-                  f"{FAM_REQUESTS}-request all-at-once engine run "
-                  f"({eng_['steps']} steps)")]
+                  f"{PREFILL}" + (f" (xattn-KV at M = {n_img})"
+                                  if arch == VLM_ARCH else "")
+                  + "; launches counted over one forward")]
+        if eng_ is not None:
+            out.append(entry(
+                dec, eng_["launches"], f"{arch} continuous batching",
+                f"the {n} gated calls of one {arch} decode step at M = "
+                f"{FAM_SLOTS} slots; launches counted over the "
+                f"{FAM_REQUESTS}-request all-at-once engine run "
+                f"({eng_['steps']} steps)"))
     hdec = per_path(rows, hyb_serve["decode_calls"], BATCH)
     out.append(entry(hdec, hyb_serve["launches"] + hyb_eng["launches"],
                      f"{HYBRID_ARCH} reduced serve and engine",
                      f"the gated calls of one reduced {HYBRID_ARCH} decode "
                      f"step at batch {BATCH}; launches counted over its "
                      f"gated serve and its engine run"))
-    out.append({
-        "name": "flash_attention", "route": "cuda",
-        "path": f"{MOE_ARCH} prefill forward",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:21",
-        "launches": moe_pre["flash"],
-        "max_abs_err": max(r["max_abs_err"] for r in frows),
-        "ms": ft["ms"], "plain_ms": ft["plain_ms"],
-        "bound_ms": ft["bound_ms"],
-        "bound_by": ("bytes" if ft["bytes_ms"] >= ft["ops_ms"]
-                     else "operations"),
-        "library_ms": ft["library_ms"], "device_ms": ft["device_ms"],
-        "library_device_ms": ft["library_device_ms"],
-        "design": "+".join(d for d, c in moe_pre["flash_by_design"].items()
-                           if c),
-        "work": f"one call at (1, {PREFILL}, {fh}/{fkv}, {fdh}) bf16 causal: "
-                f"one layer of the {MOE_ARCH} prefill; launches counted over "
-                f"one forward"})
+    for arch, pre, fr, t in ((MOE_ARCH, moe_pre, frows, ft),
+                             (AUDIO_ARCH, aud_pre, aud_frows, aud_ft),
+                             (VLM_ARCH, vlm_pre, vlm_frows, vlm_ft)):
+        h, kv, dh = t["heads"]
+        out.append({
+            "name": "flash_attention", "route": "cuda",
+            "path": f"{arch} prefill forward",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:21",
+            "launches": pre["flash"],
+            "max_abs_err": max(r["max_abs_err"] for r in fr),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                         else "operations"),
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "library_device_ms": t["library_device_ms"],
+            "design": "+".join(d for d, c in pre["flash_by_design"].items()
+                               if c),
+            "work": f"one call at (1, {PREFILL}, {h}/{kv}, {dh}) bf16 causal: "
+                    f"one layer of the {arch} prefill; launches counted over "
+                    f"one forward"})
     return out
+
+
+# --- the paper's experiments (phase 29) --------------------------------------
+
+PAPER_OUT = os.path.join("runs", "paper")    # the CLI's --out, gitignored
+
+
+def paper_phase(torch, card: str) -> dict:
+    """Phase 29: `launch/paper.py`'s seven artefacts on the card, once per
+    sweep backend, each on a fresh engine (so every sweep point is scored
+    in this run); rows and derived metrics of the two backends equal,
+    the runtime fields aside; the sweep kernel's launches counted from 0
+    over the pallas run; the two checks of
+    docs/reproducing-paper-figures.md; and the CLI as a subprocess
+    (`--backend pallas`), whose derived JSON equals the run's."""
+    from repro_torch.core import SweepEngine
+    from repro_torch.launch import paper
+    sweep = importlib.import_module("repro_torch.kernels.sweep_eval"
+                                    ).sweep_eval
+    runs = {}
+    for backend in ("vectorized", "pallas"):
+        engine = SweepEngine(device="cuda")
+        sweep.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = paper.run_all(backend=backend, device="cuda", engine=engine)
+        torch.cuda.synchronize()
+        runs[backend] = {"res": res, "wall_s": time.perf_counter() - t0,
+                         "launches": sweep.launches}
+        print(f"paper artefacts, backend {backend}: "
+              f"{runs[backend]['wall_s']!r} s in all, sweep_eval launches "
+              f"{sweep.launches}; per artefact "
+              f"{ {n: round(r[2], 4) for n, r in res.items()} } s [{card}]")
+    diffs = []
+    for name in paper.ARTEFACTS:
+        (rv, dv, _), (rp, dp, _) = (runs[b]["res"][name]
+                                    for b in ("vectorized", "pallas"))
+        strip = {k: v for k, v in dp.items() if k not in paper.RUNTIME_FIELDS}
+        if rv != rp or strip != {k: v for k, v in dv.items()
+                                 if k not in paper.RUNTIME_FIELDS}:
+            diffs.append(name)
+    fig7 = runs["pallas"]["res"]["fig7_table2_mapping_vs_heuristic"][1]
+    docs_ok = (fig7["runtime_ratio"] > 1
+               and 0.8 < fig7["tops_w_gain_geomean"] < 1.3)
+    print(f"paper artefacts: rows and derived metrics of the two backends "
+          f"equal (runtime fields aside) on "
+          f"{len(paper.ARTEFACTS) - len(diffs)} of {len(paper.ARTEFACTS)} "
+          f"{diffs or ''}; docs/reproducing-paper-figures.md checks: "
+          f"runtime_ratio {fig7['runtime_ratio']!r} > 1, "
+          f"tops_w_gain_geomean {fig7['tops_w_gain_geomean']!r} in (0.8, "
+          f"1.3): {docs_ok}")
+    if diffs or not docs_ok or runs["pallas"]["launches"] == 0 or (
+            runs["vectorized"]["launches"] != 0):
+        raise RuntimeError("the paper's artefacts failed on the card")
+    cli = [sys.executable, "-m", "repro_torch.launch.paper", "--backend",
+           "pallas", "--out", PAPER_OUT]
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cli, capture_output=True, text=True, cwd=HERE,
+                          env=env, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cli[1:])} exited {proc.returncode}:\n"
+                           f"{proc.stderr[-3000:]}")
+    same = []
+    for name, (_, derived, _) in runs["pallas"]["res"].items():
+        with open(os.path.join(HERE, PAPER_OUT,
+                               f"{name}.derived.json")) as f:
+            got = json.load(f)
+        want = json.loads(json.dumps(derived, default=str))
+        same.append(all(got[k] == want[k] for k in want
+                        if k not in paper.RUNTIME_FIELDS))
+    print(f"CLI `python {' '.join(cli[1:])}`: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s; derived JSON equal to the run's"
+          f" on {sum(same)} of {len(same)}")
+    if not all(same):
+        raise RuntimeError("the paper CLI's derived JSON differs")
+    return {"launches": runs["pallas"]["launches"],
+            "wall_s": runs["pallas"]["wall_s"],
+            "vectorized_wall_s": runs["vectorized"]["wall_s"]}
 
 
 def main() -> int:
@@ -2673,9 +2942,10 @@ def main() -> int:
             "continuous-batching"):
         raise RuntimeError("the serving CLI's report is wrong")
 
-    fam_kernels = families(torch, card)     # phases 18-26
+    fam_kernels = families(torch, card)     # phases 18-28
+    paper_run = paper_phase(torch, card)    # phase 29
 
-    # --- 27. result lines ----------------------------------------------------
+    # --- 30. result lines ----------------------------------------------------
     kernels = [{
         "name": "int8_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_gemm.cu",
@@ -2852,7 +3122,22 @@ def main() -> int:
         "work": f"phase 6's launch on {n_big} rows (times and bound); "
                 f"launches counted over the adaptive engine run "
                 f"(PlanService(backend='pallas') planning each bucket it "
-                f"served on the card)"}]
+                f"served on the card)"}, {
+        "name": "sweep_eval", "route": "cuda",
+        "path": "paper experiments",
+        "source": "src/repro_torch/kernels/csrc/sweep_eval.cu",
+        "replaces": "src/repro/kernels/sweep_eval.py:58",
+        "launches": paper_run["launches"],
+        "max_abs_err": 0.0,
+        "ms": sweep_ms, "plain_ms": sweep_plain_ms,
+        "bound_ms": sweep_bound_ms,
+        "bound_by": ("bytes" if sweep_bytes_ms >= sweep_ops_ms
+                     else "operations"),
+        "library_ms": None,
+        "work": f"phase 6's launch on {n_big} rows (times and bound); "
+                f"launches counted over launch/paper.py's seven artefacts "
+                f"with backend='pallas' (Figs. 9-13 scored on the card, "
+                f"{paper_run['wall_s']!r} s for all seven)"}]
     kernels += fam_kernels
     for entry in kernels:               # JSON has no NaN: not measured
         for key in ("device_ms", "library_device_ms"):

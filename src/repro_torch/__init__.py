@@ -12,9 +12,11 @@ name, so each function has a counterpart a reader can find:
 * `repro_torch.kernels` — hand-written Hopper kernels (CUDA C++ sources
   under `kernels/csrc/`, built with nvcc at first use) beside the plain
   torch version of each.
-* `repro_torch.models` / `repro_torch.serving` — the dense decoder's
-  decode step and the fixed-batch `ServeSession` over a `DecodeCore`.
-* `repro_torch.launch` — the campaign CLI.
+* `repro_torch.models` / `repro_torch.serving` — the decoder of every
+  family (prefill forward and decode step), the fixed-batch
+  `ServeSession` and the continuous-batching engine over a `DecodeCore`.
+* `repro_torch.launch` — the CLIs: campaigns, serving, the paper's
+  experiments, and the kernels' benchmarks.
 * `repro_torch.convert` — the JAX package's parameters as torch tensors.
 
 Entry points run on `"cuda"` unless the caller passes `device="cpu"`.

@@ -1,12 +1,14 @@
 """The WWW cost model, the What/When/Where planner and the campaigns.
 
 The scalar cost-model modules are copies of the JAX package's (they hold
-no JAX).  `vectorized` is the batched cost model on torch tensors,
-`sweep` the batched engine behind the planner's "vectorized" and
-"pallas" backends (the latter on the hand-written sweep kernel), and
-`pareto` / `campaign` the design-space campaigns on that engine, and
-`plan_service` the shape-bucketed plan service the continuous-batching
-engine consults under live traffic.
+no JAX), and so are `heuristic` (the random-search mapper of the paper's
+Fig. 7 / Table II) and `workloads` (Table VI's real workloads and the
+synthetic and square GEMM sets).  `vectorized` is the batched cost
+model on torch tensors, `sweep` the batched engine behind the planner's
+"vectorized" and "pallas" backends (the latter on the hand-written sweep
+kernel), and `pareto` / `campaign` the design-space campaigns on that
+engine, and `plan_service` the shape-bucketed plan service the
+continuous-batching engine consults under live traffic.
 """
 from .baseline import evaluate_baseline
 from .campaign import (FRONT_FIELDS, CampaignResult, CampaignSpec,
@@ -14,6 +16,7 @@ from .campaign import (FRONT_FIELDS, CampaignResult, CampaignSpec,
                        certify_point, parse_precision, run_campaign)
 from .cost_model import Metrics, evaluate, evaluate_cim
 from .gemm import GEMM, attention_gemms, conv2d_gemm, fc_gemm
+from .heuristic import random_search
 from .llm_workloads import (gemms_of_model, is_projection_label,
                             phase_gemms_of_model)
 from .mapping import CiMMapping, priority_map
@@ -35,6 +38,8 @@ from .primitives import (ANALOG_6T, ANALOG_8T, DIGITAL_6T, DIGITAL_8T,
                          tech_scale_ratio)
 from .vectorized import (FLAT_FIELDS, evaluate_baseline_flat, evaluate_batch,
                          evaluate_flat, exhaustive_best)
+from .workloads import (BERT_LARGE, DLRM, GPT_J, REAL_WORKLOADS, RESNET50,
+                        square_sweep, synthetic_dataset)
 
 __all__ = [
     "GEMM", "CiMPrimitive", "CiMSystemConfig", "CiMMapping", "Metrics",
@@ -58,4 +63,6 @@ __all__ = [
     "FRONT_FIELDS", "CampaignSpec", "CampaignResult", "Constraint",
     "build_config", "run_campaign", "certify_point", "certify_front",
     "parse_precision",
+    "random_search", "BERT_LARGE", "GPT_J", "DLRM", "RESNET50",
+    "REAL_WORKLOADS", "synthetic_dataset", "square_sweep",
 ]

@@ -7,6 +7,10 @@
   session (route report, gated against ungated steady tokens/s) or
   continuous-batching synthetic traffic (`--requests N`, optionally
   `--adaptive`), on the card unless `--device cpu`.
+* `python -m repro_torch.launch.paper` — the paper's seven artefacts
+  (Figs. 2, 7 + Table II, 9, 10, 11/12, 13 and Table VI) as CSV and
+  derived JSON, the sweeps on the sweep kernel with `--backend pallas`,
+  on the card unless `--device cpu`.
 * `python -m repro_torch.launch.gemm_bench` — times the INT8 GEMM's
   designs at qwen2-7b's projection shapes against `torch.matmul` and,
   with `--baseline DIR`, another checkout's wrapper (needs a card).

@@ -7,9 +7,12 @@ JSON report keys).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
       --smoke --batch 8 --quantize
 
---arch takes the dense, moe, ssm and hybrid families (qwen2-7b,
-qwen2-moe-a2.7b, llama4-scout-17b-a16e, mamba2-780m,
-jamba-1.5-large-398b, ...); a vlm or audio arch is refused (not ported).
+--arch takes every family (qwen2-7b, qwen2-moe-a2.7b, mamba2-780m,
+jamba-1.5-large-398b, musicgen-large, llama-3.2-vision-90b, ...).  An
+audio arch serves (batch, prompt-len, n_codebooks) prompts; a vlm arch
+holds its n_image_tokens of image K/V per cross slot (never filled, as
+in the JAX package), and its traffic mode is refused by the engine, as
+the JAX package's is.
 
 --quantize runs the planner-gated INT8 session (verdicts routed into the
 decode step, which runs as one CUDA graph) and reports the per-label
@@ -45,10 +48,10 @@ import torch
 
 from ..configs import ARCHS, RunConfig, reduced
 from ..models import init
-from ..models.model import FAMILIES
 from ..serving import (CIM_ROUTE, ContinuousBatchingEngine, DecodeCore,
                        ServeSession, cim_fraction, poisson_arrivals,
                        synthetic_requests)
+from ..serving.core import token_shape
 
 
 def _sync(device) -> None:
@@ -75,8 +78,8 @@ def steady_decode_tokens_per_s(sessions, prompt, n_tokens: int,
     for s in sessions:
         s.reset()
         s.prefill(prompt)
-    tok = torch.zeros((prompt.shape[0], 1), dtype=torch.long,
-                      device=sessions[0].device)
+    tok = torch.zeros(token_shape(sessions[0].cfg, prompt.shape[0]),
+                      dtype=torch.long, device=sessions[0].device)
 
     def sample(s, n):
         _sync(s.device)
@@ -212,9 +215,6 @@ def main(argv=None):
         ap.error("--adaptive needs traffic mode (--requests N)")
 
     cfg = ARCHS[args.arch]
-    if cfg.family not in FAMILIES:
-        ap.error(f"--arch {args.arch}: the {cfg.family} family is not ported "
-                 f"yet (ported: {', '.join(FAMILIES)})")
     if args.smoke:
         cfg = reduced(cfg)
     rc = RunConfig(attn_impl="naive", remat=False,
@@ -224,12 +224,14 @@ def main(argv=None):
     if args.requests > 0:
         print(json.dumps(run_traffic(cfg, rc, params, args), indent=1))
         return
+    nimg = cfg.vision.n_image_tokens if cfg.family == "vlm" else 0
     max_len = args.prompt_len + args.new_tokens + 1
     sess = ServeSession(cfg, rc, params, max_len=max_len,
-                        batch=args.batch, quantize=args.quantize,
-                        device=args.device)
-    prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
-                           generator=gen, device=args.device)
+                        batch=args.batch, n_image_tokens=nimg,
+                        quantize=args.quantize, device=args.device)
+    shape = token_shape(cfg, args.batch)
+    prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len)
+                           + shape[2:], generator=gen, device=args.device)
     _sync(args.device)
     t0 = time.perf_counter()
     out = sess.generate(prompt, n_new=args.new_tokens,
@@ -252,8 +254,9 @@ def main(argv=None):
         # warmed: the capture is excluded)
         routes = sess.route_report()
         ungated = ServeSession(cfg, rc, sess.params, max_len=max_len,
-                               batch=args.batch, quantize=True,
-                               gated=False, device=args.device)
+                               batch=args.batch, n_image_tokens=nimg,
+                               quantize=True, gated=False,
+                               device=args.device)
         tps_g, tps_u = steady_decode_tokens_per_s(
             (sess, ungated), prompt, args.new_tokens)
         report["gating"] = {

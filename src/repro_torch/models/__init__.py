@@ -1,6 +1,7 @@
-"""The decoder LM of the dense, moe, ssm and hybrid families: layers,
-attention, the MoE FFN, the mamba2 mixer, the prefill forward and the
-decode step over a contiguous or a paged KV cache."""
+"""The decoder LM of every family (dense, moe, ssm, hybrid, vlm, audio):
+layers, attention (and the vlm's cross attention), the MoE FFN, the
+mamba2 mixer, the prefill forward and the decode step over a contiguous
+or a paged KV cache."""
 from . import attention, layers, mamba2, model, moe
 from .layers import linear, route_trace
 from .model import (clone_cache, decode_step, forward, init, init_cache,

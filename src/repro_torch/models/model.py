@@ -1,13 +1,22 @@
-"""The decoder LM of the dense, moe, ssm and hybrid families, in torch.
+"""The decoder LM of every family of the JAX package, in torch.
 
 A model is a stack of *periods*: the smallest repeating layer pattern.
 Each period is a list of *slots*, each slot = (mixer, ffn) with mixer in
-{attn, mamba} and ffn in {dense, moe, None}, as in the JAX package:
+{attn, mamba, cross} and ffn in {dense, moe, None}, as in the JAX
+package:
 
-  dense / moe    : period = [(attn, dense | moe)]
-  ssm (mamba2)   : period = [(mamba, None)]
-  hybrid (jamba) : period = [(attn, ffn0), (mamba, ffn1) x (attn_every-1)],
-                   ffn_i = moe on every `moe.every_n_layers`-th slot
+  dense / moe / audio : period = [(attn, dense | moe)]
+  ssm (mamba2)        : period = [(mamba, None)]
+  hybrid (jamba)      : period = [(attn, ffn0), (mamba, ffn1) x (attn_every-1)],
+                        ffn_i = moe on every `moe.every_n_layers`-th slot
+  vlm (llama3.2-v)    : period = [(attn, dense) x (cross_attn_every-1),
+                                  (cross, dense)]
+
+An audio model (musicgen) reads and writes `n_codebooks` parallel token
+streams: its embedding is (nb, vocab, d), summed over the codebooks, and
+its head (nb, d, vocab), contracted by the spec "bld,ndv->blnv".  A
+cross slot attends, without a mask, onto K/V projected from the image
+embeddings (a (b, n_image_tokens, d_model) stub, as in the JAX package).
 
 Parameters are a plain dict keyed like the JAX package's pytree —
 "embed", "lm_head", "final_norm.scale", "slots"[s]."attn"."wq" stacked
@@ -17,10 +26,12 @@ periods and slots (the JAX package scans over periods).
 
 Entry points:
   init(gen, cfg, device)                     -> params
-  forward(params, tokens, cfg, rc, plan=plan) -> logits, aux  (prefill)
-  init_cache(cfg, rc, batch, max_len, device) -> cache (list of dicts)
-  init_paged_cache(cfg, rc, n_slots, n_blocks, block_size, device)
-                                             -> block-pool cache
+  forward(params, tokens, cfg, rc[, image_embeds], plan=plan)
+                                             -> logits, aux  (prefill)
+  init_cache(cfg, rc, batch, max_len, device[, n_image_tokens])
+                                             -> cache (list of dicts)
+  init_paged_cache(cfg, rc, n_slots, n_blocks, block_size, device
+                   [, n_image_tokens])       -> block-pool cache
   decode_step(params, cache, tok, pos, cfg, rc, plan
               [, active, block_tables])      -> logits, cache
 
@@ -29,13 +40,10 @@ the new token's K/V, and each mamba slot's SSM state and conv carry, into
 `cache` in place and returns the same object.  With
 `RunConfig(kv_cache_dtype="int8")` the attention cache holds int8 codes
 with a bf16 scale per (position, kv head), as in the JAX package, in the
-contiguous and in the paged cache.  `decode_step` makes no host sync:
-`pos`, `active` and `block_tables` may be device tensors, so the step
-can be captured as a CUDA graph (`repro_torch.serving.core`).
-
-Not ported yet: the vlm (cross attention) and audio (codebooks)
-families; they raise NotImplementedError naming their ROADMAP.md queue-1
-item ('The other families').
+contiguous and in the paged cache; the cross slots' image K/V stay bf16.
+`decode_step` makes no host sync: `pos`, `active` and `block_tables` may
+be device tensors, so the step can be captured as a CUDA graph
+(`repro_torch.serving.core`).
 """
 from __future__ import annotations
 
@@ -45,44 +53,38 @@ import math
 import torch
 
 from ..configs.base import ModelConfig, RunConfig
-from .attention import attend, decode_attend
+from .attention import _gqa_expand, attend, decode_attend
 from .layers import (apply_rope, attn_out_proj, dense_init, dtype_of,
                      embed_init, linear, qkv_proj, rmsnorm, swiglu)
 from .mamba2 import mamba_apply, mamba_cache_shapes, mamba_init
 from .moe import moe_apply, moe_init
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
 
 @dataclasses.dataclass(frozen=True)
 class Slot:
-    mixer: str          # "attn" | "mamba"
+    mixer: str          # "attn" | "mamba" | "cross"
     ffn: str | None     # "dense" | "moe" | None
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ported: "
-            f"{', '.join(FAMILIES)}); see ROADMAP.md, queue 1, 'The other "
-            f"families'")
-
-
 def period_slots(cfg: ModelConfig) -> list[Slot]:
-    _check_family(cfg)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "audio"):
         return [Slot("attn", "dense")]
     if cfg.family == "moe":
         return [Slot("attn", "moe")]
     if cfg.family == "ssm":
         return [Slot("mamba", None)]
-    slots = []                                   # hybrid
-    for i in range(cfg.attn_every):
-        mixer = "attn" if i == 0 else "mamba"
-        ffn = "moe" if (cfg.moe and i % cfg.moe.every_n_layers
-                        == cfg.moe.every_n_layers - 1) else "dense"
-        slots.append(Slot(mixer, ffn))
-    return slots
+    if cfg.family == "hybrid":
+        slots = []
+        for i in range(cfg.attn_every):
+            mixer = "attn" if i == 0 else "mamba"
+            ffn = "moe" if (cfg.moe and i % cfg.moe.every_n_layers
+                            == cfg.moe.every_n_layers - 1) else "dense"
+            slots.append(Slot(mixer, ffn))
+        return slots
+    if cfg.family == "vlm":
+        ce = cfg.vision.cross_attn_every
+        return [Slot("attn", "dense")] * (ce - 1) + [Slot("cross", "dense")]
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def n_periods(cfg: ModelConfig) -> int:
@@ -102,7 +104,7 @@ def _slot_init(gen: torch.Generator, slot: Slot, cfg: ModelConfig, dtype,
     d = cfg.d_model
     ones = dict(dtype=dtype, device=device)
     p = {"norm1": {"scale": torch.ones(d, **ones)}}
-    if slot.mixer == "attn":
+    if slot.mixer in ("attn", "cross"):
         nh, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
         p["attn"] = {
             name: dense_init(gen, k, n, dtype, scale, device)
@@ -147,16 +149,27 @@ def _stack_into(stacked, i: int, layer, n: int):
 def init(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
     """Random parameters from `gen` (a torch.Generator on `device`), made
     one period at a time straight into the stacked tensors, slot by slot
-    (so no more than one layer is drawn beside them)."""
-    _check_family(cfg)
+    (so no more than one layer is drawn beside them).  An audio model
+    draws one (vocab, d) embedding and one (d, vocab) head per codebook,
+    stacked to (nb, vocab, d) and (nb, d, vocab); its head is never
+    tied."""
     dtype = dtype_of(cfg.param_dtype)
     L, d = n_periods(cfg), cfg.d_model
-    params = {"embed": embed_init(gen, cfg.vocab, d, dtype, device)}
-    if not cfg.tie_embeddings:
-        # the JAX package draws (vocab, d) and transposes; drawing (d, vocab)
-        # gives the same distribution with a contiguous head
-        params["lm_head"] = (torch.randn((d, cfg.vocab), generator=gen,
-                                         device=device) * 0.02).to(dtype)
+    # the JAX package draws each head (vocab, d) and transposes; drawing
+    # (d, vocab) gives the same distribution with a contiguous head
+    def head():
+        return (torch.randn((d, cfg.vocab), generator=gen,
+                            device=device) * 0.02).to(dtype)
+    if cfg.family == "audio":
+        nb = cfg.audio.n_codebooks
+        params = {
+            "embed": torch.stack([embed_init(gen, cfg.vocab, d, dtype, device)
+                                  for _ in range(nb)]),
+            "lm_head": torch.stack([head() for _ in range(nb)])}
+    else:
+        params = {"embed": embed_init(gen, cfg.vocab, d, dtype, device)}
+        if not cfg.tie_embeddings:
+            params["lm_head"] = head()
     params["final_norm"] = {"scale": torch.ones(d, dtype=dtype,
                                                 device=device)}
     slots = period_slots(cfg)
@@ -181,14 +194,26 @@ def _mamba_entry(cfg: ModelConfig, batch: int, device,
                                 device=device)}
 
 
+def _cross_entry(cfg: ModelConfig, rows: int, n_image_tokens: int, device):
+    """A cross slot's image K/V: bf16 {"k", "v"} of shape (periods, rows,
+    n_image_tokens, kv_heads, head_dim), whatever rc.kv_cache_dtype is,
+    as in the JAX package."""
+    shape = (n_periods(cfg), rows, n_image_tokens, cfg.n_kv_heads,
+             cfg.head_dim())
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+
+
 def init_cache(cfg: ModelConfig, rc: RunConfig, batch: int, max_len: int,
-               device="cuda"):
+               device="cuda", n_image_tokens: int = 0):
     """Cache: one entry per slot.  An attention slot gets {"k", "v"},
     each (periods, batch, max_len, kv_heads, head_dim) in
     rc.kv_cache_dtype; an "int8" cache holds int8 codes and adds bf16
     "k_scale" / "v_scale" leaves of shape (periods, batch, max_len,
     kv_heads).  A mamba slot gets {"state" f32 (periods, batch, heads,
     d_state, headdim), "conv" (periods, batch, d_conv - 1, channels)}.
+    A cross slot gets the bf16 image K/V of `_cross_entry`, which no
+    step writes (the JAX package's serving never fills them either).
 
     The conv carry is bf16 but under an f32 compute dtype, where it is
     f32: the JAX package's contiguous step returns the carry it computed
@@ -203,6 +228,9 @@ def init_cache(cfg: ModelConfig, rc: RunConfig, batch: int, max_len: int,
     for slot in period_slots(cfg):
         if slot.mixer == "mamba":
             caches.append(_mamba_entry(cfg, batch, device, conv_dtype))
+            continue
+        if slot.mixer == "cross":
+            caches.append(_cross_entry(cfg, batch, n_image_tokens, device))
             continue
         shape = (n_periods(cfg), batch, max_len, cfg.n_kv_heads,
                  cfg.head_dim())
@@ -244,7 +272,8 @@ def _pool(shape, dtype, device):
 
 
 def init_paged_cache(cfg: ModelConfig, rc: RunConfig, n_slots: int,
-                     n_blocks: int, block_size: int, device="cuda"):
+                     n_blocks: int, block_size: int, device="cuda",
+                     n_image_tokens: int = 0):
     """Block-pool KV cache for slot-scheduled continuous batching.
 
     Each attention slot gets a shared pool of `n_blocks` fixed-size
@@ -257,7 +286,7 @@ def init_paged_cache(cfg: ModelConfig, rc: RunConfig, n_slots: int,
     (see `_paged_write`); the pool itself has the JAX package's shape.
     A mamba slot's state and conv carry stay per serving slot, one row
     for each of the `n_slots` (they are O(1) in sequence length: nothing
-    to page)."""
+    to page), and so do a cross slot's image K/V."""
     int8 = rc.kv_cache_dtype == "int8"
     dtype = torch.int8 if int8 else dtype_of(rc.kv_cache_dtype)
     shape = (n_periods(cfg), n_blocks, block_size, cfg.n_kv_heads,
@@ -266,6 +295,9 @@ def init_paged_cache(cfg: ModelConfig, rc: RunConfig, n_slots: int,
     for slot in period_slots(cfg):
         if slot.mixer == "mamba":
             caches.append(_mamba_entry(cfg, n_slots, device))
+            continue
+        if slot.mixer == "cross":
+            caches.append(_cross_entry(cfg, n_slots, n_image_tokens, device))
             continue
         c = {"k": _pool(shape, dtype, device), "v": _pool(shape, dtype, device)}
         if int8:
@@ -350,10 +382,52 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _embed(params, tokens, cfg: ModelConfig):
+    """Token embeddings in the compute dtype.  Audio tokens (..., nb) look
+    up each codebook's table and sum the nb rows in f32 in codebook
+    order, rounded once to the compute dtype: the JAX package's bf16
+    `jnp.sum` over the gathers gives those bits on XLA (it accumulates a
+    bf16 reduction in f32)."""
+    dtype = dtype_of(cfg.compute_dtype)
+    if cfg.family != "audio":
+        return params["embed"][tokens].to(dtype)
+    table = params["embed"]
+    x = table[0][tokens[..., 0]].float()
+    for i in range(1, table.shape[0]):
+        x = x + table[i][tokens[..., i]].float()
+    return x.to(dtype)
+
+
+def _cross_q_proj(sp, h, b, l, nh, dh, plan=None):
+    """Cross-attention query projection ("xattn-Q"), shared by the
+    full-sequence forward and the decode step."""
+    return linear(sp["attn"]["wq"], h, "xattn-Q", plan).reshape(b, l, nh, dh)
+
+
 def _lm_logits(params, x, cfg: ModelConfig, plan=None):
-    """LM head ("lm_head"); tied embeddings reuse the float embedding."""
+    """LM head ("lm_head").  An audio head is per codebook, (nb, d, vocab),
+    contracted by the spec "bld,ndv->blnv" (so it never takes the GEMM
+    kernel, which runs 2-D weights only); tied embeddings reuse the float
+    embedding."""
+    if cfg.family == "audio":
+        return linear(params["lm_head"], x, "lm_head", plan,
+                      spec="bld,ndv->blnv")
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return linear(head, x, "lm_head", plan)
+
+
+def _cross_mix(sp, h, image_kv, cfg: ModelConfig, plan=None):
+    """A cross slot's mixer over the full sequence: unmasked f32 softmax
+    attention of the queries onto the image K/V, then "xattn-out"."""
+    b, l, _ = h.shape
+    nh, dh = cfg.n_heads, cfg.head_dim()
+    q = _cross_q_proj(sp, h, b, l, nh, dh, plan)
+    kimg, vimg = (_gqa_expand(t, nh).float() for t in image_kv)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kimg) / math.sqrt(dh)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vimg)
+    return attn_out_proj(sp["attn"], o.to(h.dtype).reshape(b, l, nh * dh),
+                         plan, label="xattn-out")
 
 
 def _apply_ffn(slot: Slot, sp, x, cfg: ModelConfig, plan=None):
@@ -370,9 +444,13 @@ def _apply_ffn(slot: Slot, sp, x, cfg: ModelConfig, plan=None):
 
 def forward(params, tokens, cfg: ModelConfig, rc: RunConfig,
             image_embeds=None, plan=None):
-    """The full-sequence forward (prefill).  tokens: (b, l) int.  Returns
-    (logits (b, l, vocab), aux): aux sums the MoE load-balancing losses
-    over the MoE slots (0.0 for a model without one).  `plan` (a
+    """The full-sequence forward (prefill).  tokens: (b, l) int, or (b, l,
+    nb) for audio.  Returns (logits (b, l, vocab) (audio: (b, l, nb,
+    vocab)), aux): aux sums the MoE load-balancing losses over the MoE
+    slots (0.0 for a model without one).  A vlm model needs
+    `image_embeds` (b, n_image_tokens, d_model): each cross slot projects
+    its K/V from them ("xattn-KV", not normalized), as the JAX package
+    does; other families ignore them.  `plan` (a
     KernelPlanTable) gates quantized projections per label, as in
     `decode_step`; attention runs `attend(impl=rc.attn_impl)` on
     positions arange(l); a mamba slot runs the chunked SSD with chunk
@@ -380,25 +458,30 @@ def forward(params, tokens, cfg: ModelConfig, rc: RunConfig,
 
     The JAX package's `remat` and sharding constraints are training and
     mesh concerns and are not applied here; the layer loop is a Python
-    loop over periods (so `scan_unroll` has nothing to unroll).  Cross
-    attention (`image_embeds`) and the vlm and audio families raise
-    NotImplementedError."""
-    _check_family(cfg)
-    if image_embeds is not None:
-        raise NotImplementedError("cross attention (vlm image_embeds) is not "
-                                  "ported yet (ROADMAP.md, queue 1, 'The "
-                                  "other families')")
-    b, l = tokens.shape
-    x = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+    loop over periods (so `scan_unroll` has nothing to unroll)."""
+    slots = period_slots(cfg)
+    if image_embeds is None and any(s.mixer == "cross" for s in slots):
+        raise ValueError(f"{cfg.name}: a vlm forward needs image_embeds "
+                         f"(b, n_image_tokens, d_model)")
+    b, l = tokens.shape[:2]
+    x = _embed(params, tokens, cfg)
     nh, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
     pos = torch.arange(l, device=x.device)[None, :]
-    slots = period_slots(cfg)
     aux = 0.0
     for i in range(n_periods(cfg)):
         for slot, slot_params in zip(slots, params["slots"]):
             sp = _layer(slot_params, i)
+            if slot.mixer == "cross":
+                # the image K/V first, then the mixer: the JAX package's
+                # order of the route trace
+                limg = image_embeds.shape[1]
+                image_kv = [linear(sp["attn"][w], image_embeds, "xattn-KV",
+                                   plan).reshape(b, limg, kvh, dh)
+                            for w in ("wk", "wv")]
             h = rmsnorm(sp["norm1"], x, cfg.rmsnorm_eps)
-            if slot.mixer == "mamba":
+            if slot.mixer == "cross":
+                y = _cross_mix(sp, h, image_kv, cfg, plan)
+            elif slot.mixer == "mamba":
                 y, _ = mamba_apply(sp["mamba"], h, cfg, plan=plan)
             else:
                 q, k, v = qkv_proj(sp["attn"], h, nh, kvh, dh, plan)
@@ -476,14 +559,30 @@ def _attn_step(ap, layer, h, pos, pvec, lens, cfg: ModelConfig,
     return attn_out_proj(ap, o.reshape(b, 1, nh * dh), plan)
 
 
+def _cross_step(sp, layer, h, cfg: ModelConfig, plan):
+    """A cross slot's decode step: the query attends, through the plain
+    `decode_attend`, to all n_image_tokens rows of the layer's image K/V
+    (read only).  Returns "xattn-out"'s output."""
+    b = h.shape[0]
+    nh, dh = cfg.n_heads, cfg.head_dim()
+    q = _cross_q_proj(sp, h, b, 1, nh, dh, plan)
+    n_img = torch.full((b,), layer["k"].shape[1], dtype=torch.long,
+                       device=h.device)
+    o = decode_attend(q, layer["k"], layer["v"], n_img)
+    return attn_out_proj(sp["attn"], o.reshape(b, 1, nh * dh), plan,
+                         label="xattn-out")
+
+
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
                 rc: RunConfig, plan=None, active=None, block_tables=None):
-    """One decode step.  tokens: (b, 1) int; pos: the current length
-    shared by the batch, an int or a 0-d tensor, OR (b,) per-slot lengths
-    (ragged, continuous batching).  Writes this token's K/V, and each
-    mamba slot's new SSM state and conv carry, into `cache` in place and
-    returns (logits (b, 1, vocab), cache).  `plan` is the
-    KernelPlanTable: gated projection labels run the INT8 GEMM kernel.
+    """One decode step.  tokens: (b, 1) int (audio: (b, 1, nb)); pos: the
+    current length shared by the batch, an int or a 0-d tensor, OR (b,)
+    per-slot lengths (ragged, continuous batching).  Writes this token's
+    K/V, and each mamba slot's new SSM state and conv carry, into `cache`
+    in place and returns (logits (b, 1, vocab) (audio: (b, 1, nb,
+    vocab)), cache).  A cross slot attends to its image K/V as they
+    stand in the cache.  `plan` is the KernelPlanTable: gated projection
+    labels run the INT8 GEMM kernel.
     With rc.kv_cache_dtype "int8" the new K/V are quantized per
     (position, kv head), written with their scales, and attention reads
     the dequantized cache, as in the JAX package.
@@ -509,7 +608,7 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
         raise ValueError("ragged per-slot positions need a paged KV cache: "
                          "pass block_tables (see init_paged_cache)")
     b = tokens.shape[0]
-    x = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+    x = _embed(params, tokens, cfg)
     if torch.is_tensor(pos):
         pvec = pos.long().reshape(-1, 1).expand(b, 1)
         lens = pvec[:, 0] + 1
@@ -524,6 +623,8 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
             h = rmsnorm(sp["norm1"], x, cfg.rmsnorm_eps)
             if slot.mixer == "mamba":
                 y = _mamba_step(sp["mamba"], layer, h, cfg, plan, active)
+            elif slot.mixer == "cross":
+                y = _cross_step(sp, layer, h, cfg, plan)
             else:
                 y = _attn_step(sp["attn"], layer, h, pos, pvec, lens, cfg, rc,
                                plan, active, block_tables)

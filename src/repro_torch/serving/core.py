@@ -57,10 +57,17 @@ from ..quant import (PRECISIONS, KernelPlanTable,
 from .graphs import StepGraph, leaves
 
 
+def token_shape(cfg: ModelConfig, batch: int) -> tuple[int, ...]:
+    """The shape of one step's tokens: (batch, 1), audio (batch, 1, nb)."""
+    return (batch, 1) + ((cfg.audio.n_codebooks,)
+                         if cfg.family == "audio" else ())
+
+
 def sample_token(cfg: ModelConfig, logits, temperature: float,
                  generator: torch.Generator | None = None):
     """Greedy / temperature sampling of the next token from step logits.
-    Returns (b, 1) int64 tokens for feeding back into the decode step.
+    Returns int64 tokens shaped for feeding back into the decode step:
+    (b, 1), audio (b, 1, nb), one token per codebook.
 
     Greedy decoding (temperature <= 0) takes the first maximum, as
     jnp.argmax does.  Temperature sampling draws from `generator`; it
@@ -70,7 +77,8 @@ def sample_token(cfg: ModelConfig, logits, temperature: float,
         tok = torch.argmax(last, dim=-1)
     else:
         probs = torch.softmax(last.float() / temperature, dim=-1)
-        tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        tok = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
+                                generator=generator).reshape(probs.shape[:-1])
     return tok[:, None].long()
 
 
@@ -321,12 +329,15 @@ class DecodeCore:
             steps = list(self._batch_steps.values())
         return sum(s.captures for s in steps)
 
-    def route_report(self, batch: int, max_len: int) -> dict:
+    def route_report(self, batch: int, max_len: int,
+                     n_image_tokens: int = 0) -> dict:
         """label -> {route, use_cim, what, where} as the decode step runs
         them, from one step on "meta" tensors (shapes only, no compute,
         no kernel launch)."""
-        cache = init_cache(self.cfg, self.rc, batch, max_len, device="meta")
-        tokens = torch.zeros((batch, 1), dtype=torch.long, device="meta")
+        cache = init_cache(self.cfg, self.rc, batch, max_len, device="meta",
+                           n_image_tokens=n_image_tokens)
+        tokens = torch.zeros(token_shape(self.cfg, batch), dtype=torch.long,
+                             device="meta")
         with route_trace() as records, torch.inference_mode():
             decode_step(_meta(self.params), cache, tokens, 0, self.cfg,
                         self.rc, plan=self.plan_table)

@@ -67,12 +67,18 @@ class ServeSession:
     quantize=True turns the planner verdicts into the execution policy
     (see DecodeCore) at weight `precision` ("int8", "int4" or "fp8");
     gated=False keeps the quantized weights but forces every label onto
-    the standard path.  `device` defaults to "cuda"."""
+    the standard path.  `device` defaults to "cuda".
+
+    An audio session takes (batch, T, nb) prompts and generates (batch,
+    n_new, nb) tokens.  A vlm session holds `n_image_tokens` rows of
+    bf16 image K/V per cross slot; as in the JAX package, nothing fills
+    them, so its decode steps attend to zeros."""
     cfg: ModelConfig
     rc: RunConfig
     params: Any
     max_len: int
     batch: int
+    n_image_tokens: int = 0
     quantize: bool = False
     gated: bool = True
     precision: str = "int8"
@@ -120,7 +126,8 @@ class ServeSession:
     def route_report(self) -> dict:
         """label -> {route, use_cim, what, where} as this session's decode
         step runs them (shape-only step, no compute)."""
-        return self.core.route_report(self.batch, self.max_len)
+        return self.core.route_report(self.batch, self.max_len,
+                                      self.n_image_tokens)
 
     @property
     def decode_executables(self) -> int | None:
@@ -142,7 +149,8 @@ class ServeSession:
         captured it by address."""
         if getattr(self, "cache", None) is None:
             self.cache = init_cache(self.cfg, self.rc, self.batch,
-                                    self.max_len, device=self.device)
+                                    self.max_len, device=self.device,
+                                    n_image_tokens=self.n_image_tokens)
         else:
             for entry in self.cache:
                 for t in entry.values():
@@ -150,8 +158,8 @@ class ServeSession:
         self.pos = 0
 
     def prefill(self, tokens):
-        """Feed a (batch, T) prompt token by token through the
-        prefill-phase step; returns the last step's logits."""
+        """Feed a (batch, T) prompt (audio: (batch, T, nb)) token by token
+        through the prefill-phase step; returns the last step's logits."""
         tokens = torch.as_tensor(tokens, device=self.device).long()
         logits = None
         for t in range(tokens.shape[1]):
@@ -163,8 +171,9 @@ class ServeSession:
     def generate(self, prompt_tokens, n_new: int, temperature: float = 0.0,
                  seed: int = 0):
         """Prefill the prompt, then decode `n_new` tokens; returns them as
-        a (batch, n_new) int64 tensor.  temperature > 0 samples from a
-        torch.Generator on the session's device seeded with `seed`."""
+        a (batch, n_new) int64 tensor (audio: (batch, n_new, nb)).
+        temperature > 0 samples from a torch.Generator on the session's
+        device seeded with `seed`."""
         logits = self.prefill(prompt_tokens)
         gen = None
         if temperature > 0.0:

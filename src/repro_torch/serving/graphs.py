@@ -20,6 +20,12 @@ copied before the warm-up and restored after it: the first call applies
 the step once, as every later replay does.
 
 A capture that fails raises: nothing falls back to running `fn` eagerly.
+Python's cyclic garbage collector is run before each capture and held
+off during it: a dead CUDA graph left in a reference cycle (a discarded
+core and its steps) would otherwise be freed at whatever allocation
+triggers a collection, and destroying a graph while a stream captures
+invalidates that capture (torch's `torch.cuda.graph` no longer collects
+on entry).
 
 The kernels' launch counters (`int8_gemm.launches`, `launches_by_design`,
 `launches_by_format`, and the attention kernels' counters) are Python
@@ -37,6 +43,7 @@ lock, and a capture and a refresh never overlap
 """
 from __future__ import annotations
 
+import gc
 import threading
 
 import torch
@@ -128,6 +135,9 @@ class StepGraph:
         del saved
         graph = torch.cuda.CUDAGraph()
         before = _snapshot()
+        collecting = gc.isenabled()
+        gc.collect()                       # dead graphs go before, not during
+        gc.disable()
         try:
             with capture_lock:
                 with torch.cuda.graph(graph):
@@ -137,6 +147,9 @@ class StepGraph:
             raise RuntimeError(
                 "CUDA-graph capture of the step failed (the step does not "
                 f"run eagerly instead): {e}") from e
+        finally:
+            if collecting:
+                gc.enable()
         self.credit = _delta(_snapshot(), before)
         _add(self.credit, -1)              # the capture launched nothing
         self.graph, self.static_in, self.static_out = graph, static, out

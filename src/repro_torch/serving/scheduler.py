@@ -63,7 +63,7 @@ import torch
 
 from ..models import period_slots
 from ..models.model import init_paged_cache
-from .core import DecodeCore, sample_token
+from .core import DecodeCore, sample_token, token_shape
 
 
 @dataclasses.dataclass
@@ -71,9 +71,10 @@ class Request:
     """One serving request: a prompt plus generation settings.
 
     Telemetry fields (t_*, tokens, ...) are engine-written; times are
-    seconds on the engine clock.  `tokens` holds generated token ids."""
+    seconds on the engine clock.  `tokens` holds generated token ids
+    (ints; audio: (n_codebooks,) int arrays)."""
     rid: Any
-    prompt: Any                       # (P,) int32
+    prompt: Any                       # (P,) int32 (audio: (P, nb))
     max_new_tokens: int
     temperature: float = 0.0
     eos_id: int | None = None
@@ -232,11 +233,15 @@ class ContinuousBatchingEngine:
         self.slots: list[_Slot | None] = [None] * n_slots
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._t0: float | None = None
-        # host -> device inputs: one int32 buffer per step (tokens, pos,
-        # active, device-feed mask, block tables), staged through two
+        # host -> device inputs: one int32 buffer per step (pos, active,
+        # device-feed mask, tokens, block tables), staged through two
         # pinned buffers on a CUDA core
         self._cuda = self.device.type == "cuda"
-        width = n_slots * (4 + self.max_blocks)
+        # one step's tokens: n_slots rows of `tok_width` ids (audio: one
+        # per codebook)
+        self.tok_shape = token_shape(core.cfg, n_slots)
+        self.tok_width = math.prod(self.tok_shape[2:])
+        width = n_slots * (3 + self.tok_width + self.max_blocks)
         self._staging = None
         self._pinned, self._pinned_done = [], []
         self._tok_host = []
@@ -247,8 +252,8 @@ class ContinuousBatchingEngine:
             self._pinned = [torch.empty(width, dtype=torch.int32,
                                         pin_memory=True) for _ in range(2)]
             self._pinned_done = [None, None]
-            self._tok_host = [torch.empty(n_slots, dtype=torch.long,
-                                          pin_memory=True)
+            self._tok_host = [torch.empty(n_slots * self.tok_width,
+                                          dtype=torch.long, pin_memory=True)
                               for _ in range(2)]
         # sync-free token loop: step t's host fetch overlaps step t+1's
         # dispatch.  Temperature sampling needs host logits before the
@@ -365,7 +370,8 @@ class ContinuousBatchingEngine:
         return sum(s is not None for s in self.slots)
 
     def _token_batch(self) -> np.ndarray:
-        toks = np.zeros(self.n_slots, np.int32)
+        """The host's token of each slot: (n_slots, tok_width) int32."""
+        toks = np.zeros((self.n_slots, self.tok_width), np.int32)
         for i, st in enumerate(self.slots):
             if st is not None:
                 tok = st.next_token()
@@ -377,14 +383,15 @@ class ContinuousBatchingEngine:
 
     def _inputs(self, host_toks, pos, active, use_dev):
         """The step's device inputs from host arrays: (tokens (n, 1)
-        int64, pos (n,) int32, active (n,) bool, block_tables (n,
-        max_blocks) int32).  One host-to-device copy (non-blocking, from
-        pinned memory on a CUDA core); the token feed takes the previous
-        step's on-device greedy token where `use_dev`."""
-        n = self.n_slots
+        int64 (audio: (n, 1, nb)), pos (n,) int32, active (n,) bool,
+        block_tables (n, max_blocks) int32).  One host-to-device copy
+        (non-blocking, from pinned memory on a CUDA core); the token feed
+        takes the previous step's on-device greedy token where
+        `use_dev`."""
+        n, end = self.n_slots, 3 * self.n_slots + host_toks.size
         packed = np.concatenate([
-            host_toks, pos, active.astype(np.int32),
-            use_dev.astype(np.int32), self.block_tables.reshape(-1)])
+            pos, active.astype(np.int32), use_dev.astype(np.int32),
+            host_toks.reshape(-1), self.block_tables.reshape(-1)])
         if self._cuda:
             k = self._n_staged % 2
             self._n_staged += 1
@@ -398,14 +405,15 @@ class ContinuousBatchingEngine:
             self._pinned_done[k] = done
         else:
             buf = torch.from_numpy(packed.astype(np.int32))
-        host = buf[:n].long()[:, None]
+        host = buf[3 * n:end].long().view(self.tok_shape)
         if self._device_toks is not None:
-            dev_mask = buf[3 * n:4 * n].bool()[:, None]
+            dev_mask = buf[2 * n:3 * n].bool().view(
+                (n,) + (1,) * (host.dim() - 1))
             tokens = torch.where(dev_mask, self._device_toks, host)
         else:
             tokens = host
-        return (tokens, buf[n:2 * n], buf[2 * n:3 * n].bool(),
-                buf[4 * n:].view(n, self.max_blocks))
+        return (tokens, buf[:n], buf[n:2 * n].bool(),
+                buf[end:].view(n, self.max_blocks))
 
     def _wait_device(self) -> None:
         if self._cuda:
@@ -529,7 +537,7 @@ class ContinuousBatchingEngine:
         if self._cuda:
             host = self._tok_host[self._n_fetched % 2]
             self._n_fetched += 1
-            host.copy_(greedy[:, 0], non_blocking=True)
+            host.copy_(greedy.reshape(-1), non_blocking=True)
             event = torch.cuda.Event()
             event.record()
         self._device_toks = greedy
@@ -569,9 +577,9 @@ class ContinuousBatchingEngine:
         t0 = self.clock()
         if inf.event is not None:
             inf.event.synchronize()         # the step and its copy ran
-            greedy = inf.host.numpy().copy()
+            greedy = inf.host.numpy().reshape(self.n_slots, -1).copy()
         else:
-            greedy = inf.greedy[:, 0].numpy().copy()
+            greedy = inf.greedy.reshape(self.n_slots, -1).numpy().copy()
         first_rows = {}
         if self.record_logits:
             idxs = [i for i, st, first, _ in inf.recs
@@ -593,7 +601,9 @@ class ContinuousBatchingEngine:
                 req.t_first = now
                 if i in first_rows:
                     req.first_logits = first_rows[i]
-            hit_eos = req.eos_id is not None and int(tok) == req.eos_id
+            hit_eos = (req.eos_id is not None
+                       and self.cfg.family != "audio"
+                       and int(tok) == req.eos_id)
             if hit_eos or final:
                 self._evict(i, "eos" if hit_eos else "max_tokens", now)
         if not self._pipelined:
@@ -603,14 +613,18 @@ class ContinuousBatchingEngine:
         """Next token for slot i: the batchwide greedy argmax unless the
         request asked for temperature sampling (then a per-slot draw from
         the engine's torch.Generator — synchronous mode only, see
-        `submit`)."""
+        `submit`).  An audio token is an (nb,) int32 array, one id per
+        codebook."""
+        audio = self.cfg.family == "audio"
         if st.req.temperature <= 0.0:
-            return np.int32(greedy[i])
+            return greedy[i].copy() if audio else np.int32(greedy[i, 0])
         with torch.inference_mode():
             probs = torch.softmax(logits[i, -1].float()
                                   / st.req.temperature, dim=-1)
-            tok = torch.multinomial(probs, 1, generator=self._gen)
-        return np.int32(tok.item())
+            tok = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
+                                    generator=self._gen)[:, 0]
+        tok = tok.cpu().numpy().astype(np.int32)
+        return tok if audio else np.int32(tok[0])
 
     def _evict(self, i: int, reason: str, now: float) -> None:
         st = self.slots[i]
@@ -787,15 +801,17 @@ def synthetic_requests(cfg, n: int, seed: int = 0,
                        new_tokens: tuple[int, int] = (4, 16),
                        temperature: float = 0.0) -> list[Request]:
     """Seeded ragged request set (uniform prompt/output length ranges,
-    inclusive), drawn with numpy's RandomState exactly as the JAX
-    package draws it — the same seed gives both packages the same
-    requests."""
+    inclusive; audio prompts (P, n_codebooks)), drawn with numpy's
+    RandomState exactly as the JAX package draws it — the same seed
+    gives both packages the same requests."""
     rng = np.random.RandomState(seed)
     reqs = []
     for i in range(n):
         p = int(rng.randint(prompt_len[0], prompt_len[1] + 1))
         m = int(rng.randint(new_tokens[0], new_tokens[1] + 1))
-        prompt = rng.randint(0, cfg.vocab, size=(p,)).astype(np.int32)
+        shape = ((p, cfg.audio.n_codebooks) if cfg.family == "audio"
+                 else (p,))
+        prompt = rng.randint(0, cfg.vocab, size=shape).astype(np.int32)
         reqs.append(Request(rid=i, prompt=prompt, max_new_tokens=m,
                             temperature=temperature))
     return reqs

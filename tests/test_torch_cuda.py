@@ -219,6 +219,14 @@ def test_kernel_matches_plain_prefill_rows(cuda, kn, m):
     _check(*_inputs(m, *kn, torch.bfloat16, cuda, seed=m), design="A")
 
 
+def test_kernel_matches_plain_cross_kv(cuda):
+    """llama-3.2-vision's xattn-KV projection at full width: the 1601 image
+    tokens of one prompt (M not a multiple of the 128-row tile, so design
+    A runs a masked tail) times wk / wv (K = 8192, N = 8 x 128)."""
+    _check(*_inputs(1601, 8192, 1024, torch.bfloat16, cuda, seed=1601),
+           "os", "A")
+
+
 def test_kernel_matches_plain_prefill_lm_head(cuda):
     _check(*_inputs(2048, *FULL_WIDTH[4], torch.bfloat16, cuda, seed=1))
 
@@ -452,7 +460,12 @@ FLASH_CASES = SMOKE_FLASH + [(1, 512, 512, 4, 4, 64, 100),
                              (1, 1024, 1024, 4, 2, 128, 300),
                              # qwen2-moe-a2.7b's prefill: 16/16 heads,
                              # group size 1, at d = 128
-                             (1, 2048, 2048, 16, 16, 128, 0)]
+                             (1, 2048, 2048, 16, 16, 128, 0),
+                             # musicgen-large's prefill: 32/32 heads at
+                             # d = 64, the first model path at that width
+                             (1, 2048, 2048, 32, 32, 64, 0),
+                             # llama-3.2-vision's self-attention: 64/8
+                             (1, 2048, 2048, 64, 8, 128, 0)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -808,6 +821,41 @@ def test_failed_capture_raises_and_never_runs_eagerly(cuda, monkeypatch):
     torch.cuda.synchronize()                 # the card is still usable
 
 
+def test_capture_holds_off_the_garbage_collector(cuda):
+    """A dead graph in a reference cycle that the cyclic collector would
+    free in the middle of another graph's capture: destroying a CUDA
+    graph while a stream captures invalidates the capture, so StepGraph
+    collects before it captures and holds the collector off during it.
+    Here the step itself makes the old graph cyclic garbage during its
+    capture and then allocates with the collector due at every
+    allocation."""
+    import gc
+
+    from repro_torch.serving.graphs import StepGraph
+    x = torch.ones(4, device="cuda")
+    box = [StepGraph(lambda t: t * 2)]
+    box[0](x)                                 # captured and replayed
+    thresholds = gc.get_threshold()
+
+    def step(t):
+        if torch.cuda.is_current_stream_capturing() and box:
+            cycle = [box.pop()]
+            cycle.append(cycle)               # only the collector frees it
+            del cycle
+            gc.set_threshold(1)
+            junk = [[] for _ in range(1000)]  # allocations that would collect
+            del junk
+        return t * 3
+
+    try:
+        out = StepGraph(step)(x)
+    finally:
+        gc.set_threshold(*thresholds)
+    torch.cuda.synchronize()
+    assert torch.equal(out, x * 3) and not box
+    gc.collect()                              # the old graph goes now
+
+
 # --- the moe, ssm and hybrid families as CUDA graphs -------------------------
 
 FAMILY_ARCHS = ("qwen2-moe-a2.7b", "mamba2-780m", "jamba-1.5-large-398b")
@@ -906,3 +954,51 @@ def test_engine_resets_mamba_state_under_the_graph(cuda, arch):
     assert [t.data_ptr() for e in eng.cache for t in e.values()] == ptrs
     assert core.batch_decode_executables == len(
         {core.plan_table, core.prefill_plan_table})
+
+
+# --- the audio and vlm families as CUDA graphs, and the paper's sweeps --------
+
+@pytest.mark.parametrize("arch", ("musicgen-large", "llama-3.2-vision-90b"))
+def test_graphed_audio_and_vlm_steps_equal_eager(cuda, arch):
+    """The fixed-batch step of reduced musicgen-large ((b, 1, nb) tokens,
+    the spec-form head) and llama-3.2-vision-90b (its cross slots reading
+    the image K/V), replayed from one CUDA graph, against the eager
+    decode_step on a clone of the cache: logits and cache bit for bit."""
+    from repro_torch.models import clone_cache, decode_step, init_cache
+    from repro_torch.serving.core import token_shape
+    cfg, rc, core = _family_core(arch)
+    n_img = cfg.vision.n_image_tokens if cfg.family == "vlm" else 0
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cache = init_cache(cfg, rc, 4, 12, device="cuda", n_image_tokens=n_img)
+    for e in cache:
+        if n_img and e["k"].shape[2] == n_img:      # image K/V, not zeros
+            e["k"].normal_(generator=gen)
+            e["v"].normal_(generator=gen)
+    copy = clone_cache(cache)
+    for pos in range(5):
+        tok = torch.randint(0, cfg.vocab, token_shape(cfg, 4), generator=gen,
+                            device="cuda")
+        got, cache = core.step(cache, tok, pos)
+        with torch.inference_mode():
+            want, copy = decode_step(core.params, copy, tok, pos, cfg, rc,
+                                     plan=core.plan_table)
+        assert torch.equal(got, want), pos
+    for ours, ref in zip(cache, copy):
+        for key in ours:
+            assert torch.equal(ours[key], ref[key]), key
+    assert core.decode_executables == 1
+
+
+def test_paper_fig13_backends_equal_on_card(cuda):
+    """`launch/paper.py`'s Fig. 13 on the card: the sweep kernel
+    (backend "pallas", launched) and the torch spec give the same rows
+    and derived metrics (the kernel is bit-equal to its plain version)."""
+    from repro_torch.kernels.sweep_eval import sweep_eval as kernel
+    from repro_torch.launch import paper
+    vec = paper.fig13_square_gemms(backend="vectorized", device="cuda",
+                                   engine=SweepEngine(device="cuda"))
+    before = kernel.launches
+    pal = paper.fig13_square_gemms(backend="pallas", device="cuda",
+                                   engine=SweepEngine(device="cuda"))
+    assert kernel.launches > before
+    assert pal == vec

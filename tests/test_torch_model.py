@@ -155,7 +155,3 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="spare block"):
         decode_step(tp, cache, tok, 0, tcfg, trc,
                     block_tables=torch.zeros((2, 1), dtype=torch.long))
-    # the vlm and audio families are still to port; they name their item
-    for arch in ("llama-3.2-vision-90b", "musicgen-large"):
-        with pytest.raises(NotImplementedError, match="The other families"):
-            init(torch.Generator(), reduced(ARCHS[arch]), device="cpu")

@@ -155,14 +155,3 @@ def test_forward_matches_own_decode_steps(impl):
     step_logits = torch.stack(steps, dim=1)
     scale = full.abs().max().item()
     assert (step_logits - full).abs().max().item() <= 1e-5 * scale
-
-
-def test_forward_unported_paths_raise():
-    _, tcfg, _, trc = _configs("float32")
-    params = init(torch.Generator().manual_seed(0), tcfg, device="cpu")
-    tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="cross attention"):
-        forward(params, tokens, tcfg, trc, image_embeds=torch.zeros(1, 2, 64))
-    for arch in ("llama-3.2-vision-90b", "musicgen-large"):
-        with pytest.raises(NotImplementedError, match="The other families"):
-            forward(params, tokens, reduced(ARCHS[arch]), trc)
