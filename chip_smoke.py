@@ -5,7 +5,8 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It drives the port's main paths on the card: the planner-gated serving of
+It drives the port's main paths on the card: training (qwen2-7b at full
+size, its full width at 8 layers, mamba2-780m), the planner-gated serving of
 qwen2-7b, qwen2-moe-a2.7b, mamba2-780m and musicgen-large at full width
 and depth and llama-3.2-vision-90b at full width, 10 of its 100 layers
 deep (random weights from a seed; jamba-1.5-large-398b's mixed
@@ -200,7 +201,28 @@ order it:
    docs/reproducing-paper-figures.md, and `python -m
    repro_torch.launch.paper --backend pallas --out runs/paper` as a
    subprocess;
-30. prints one JSON line of kernel numbers, the card line, and last
+30. trains on the card (`train_phase()`; no kernel runs on this path, as
+   none runs on the JAX package's: float weights take torch.matmul and
+   attention the chunked `flash_jnp`): (a) qwen2-7b at full size (28
+   layers, 7.6 B params, bf16 weights from seed 0) with Adafactor,
+   batch 2 x seq 4096; (b) qwen2-7b at full width cut to 8 layers with
+   AdamW, batch 8 x 1024 in 2 microbatches (the f32 accumulator); (c)
+   mamba2-780m at full size with AdamW, batch 8 x 1024 (the SSD's
+   backward); each with remat (policy "nothing"), one warm-up step,
+   TRAIN_TIMED steps timed by CUDA events (forward + backward and the
+   optimizer apart), tokens/s, model TFLOP/s (the JAX package's
+   roofline formula, copied) and its share of 989 TFLOP/s, peak memory
+   and a traced step (top kernels, idle share); each checks finite
+   losses and gnorms, the step-0 loss within 0.5 of ln(vocab), every
+   leaf moved by step 1, zero launches of all four kernels across its
+   steps, and no SelectBackward0 into a stacked leaf; (d) one f32 step
+   of reduced qwen2-7b widened to d_model 256 on the card against the
+   CPU, then `python -m repro_torch.launch.train --smoke --steps 30
+   --ckpt-dir tmp_chip/ckpt_train --ckpt-every 10` crashed by
+   `--fail-at 25` (non-zero exit) and rerun: resumed from 20, loss_last
+   < loss_first, and its losses bit for bit those of an uninterrupted
+   run of the same flags;
+31. prints one JSON line of kernel numbers, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Phase 9 also holds the graphs: the serve's steps replay CUDA graphs
@@ -437,7 +459,7 @@ def reset_counts(wrapper) -> None:
     """Set a kernel wrapper's launch counts, in all, per design and (for
     int8_gemm) per weight format, to 0."""
     wrapper.launches = 0
-    for counts in (wrapper.launches_by_design,
+    for counts in (getattr(wrapper, "launches_by_design", {}),
                    getattr(wrapper, "launches_by_format", {})):
         for key in counts:
             counts[key] = 0
@@ -1657,6 +1679,334 @@ def paper_phase(torch, card: str) -> dict:
     return {"launches": runs["pallas"]["launches"],
             "wall_s": runs["pallas"]["wall_s"],
             "vectorized_wall_s": runs["vectorized"]["wall_s"]}
+
+
+# --- training (phase 30) -------------------------------------------------------
+
+# (label, arch, layers, optimizer, batch, seq, microbatches): qwen2-7b at
+# full size (train_4k's length), at full width cut to 8 layers, and
+# mamba2-780m at full size; each with remat (policy "nothing") and the
+# chunked flash_jnp attention at chunk 1024
+TRAIN_CASES = (("a", ARCH, 28, "adafactor", 2, 4096, 1),
+               ("b", ARCH, 8, "adamw", 8, 1024, 2),
+               ("c", "mamba2-780m", 48, "adamw", 8, 1024, 1))
+TRAIN_TIMED = 3              # timed steps after one warm-up step
+TRAIN_LR = 1e-3             # the train CLI's default rate
+# a bf16 element moves by a step of ~lr only where lr reaches half its ulp,
+# |p| < 2^8·lr; leaves whose sampled elements all lie above 2^7·lr (the
+# norm scales at 1.0) are expected to stay, their f32 moments to move
+TRAIN_BF16_MOVES = 2.0 ** 7 * TRAIN_LR
+TRAIN_INIT_STD = 0.02        # the LM head's init (models/layers.py)
+TRAIN_SAMPLE = 4096          # elements per leaf compared before / after
+TRAIN_GRAPH_SEQ = 256        # the forward whose autograd graph is walked
+# phase 30d: reduced qwen2-7b widened (tests/test_torch_lowbit_serving.py's
+# width) in f32, one step on the card against the same step on the CPU
+TRAIN_WIDE = dict(d_model=256, d_ff=512, d_head=64, vocab=512,
+                  param_dtype="float32", compute_dtype="float32")
+TRAIN_LOSS_TOL, TRAIN_GNORM_TOL = 1e-5, 1e-4
+TRAIN_FLIP_SHARE = 1e-3      # elements whose first Adam step may flip sign
+TRAIN_CKPT = os.path.join("tmp_chip", "ckpt_train")   # gitignored
+TRAIN_CLI_STEPS, TRAIN_CLI_EVERY, TRAIN_CLI_FAIL = 30, 10, 25
+
+
+def train_flops(cfg, b: int, s: int) -> float:
+    """Model FLOPs of one train step: 6·N·tokens plus causal attention,
+    forward and backward (the JAX package's
+    src/repro/launch/roofline.py:95-135, copied: model_flops and
+    _attn_flops for a "train" shape)."""
+    if cfg.family == "ssm":
+        n_attn = 0
+    elif cfg.family == "hybrid":
+        n_attn = cfg.n_layers // cfg.attn_every
+    else:
+        n_attn = cfg.n_layers
+    attn = 0.0
+    if n_attn:
+        eff = min(s, cfg.sliding_window) if cfg.sliding_window else s
+        attn = n_attn * 2.0 * b * cfg.n_heads * s * eff * cfg.head_dim() * (
+            0.5 if not cfg.sliding_window else 1.0) * 2
+    return 6.0 * cfg.active_param_count() * b * s + attn * 3.0
+
+
+def select_into(loss, ids: set) -> int:
+    """SelectBackward0 nodes of loss's autograd graph that feed the
+    AccumulateGrad of a tensor in `ids`."""
+    bad, seen, todo = 0, set(), [loss.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        for nxt, _ in node.next_functions:
+            if nxt is None:
+                continue
+            if (type(node).__name__ == "SelectBackward0"
+                    and type(nxt).__name__ == "AccumulateGrad"
+                    and id(nxt.variable) in ids):
+                bad += 1
+            todo.append(nxt)
+    return bad
+
+
+def train_case(torch, card: str, label, arch, layers, optimizer, batch,
+               seq, mb) -> dict:
+    """One of phase 30's runs: a warm-up step, TRAIN_TIMED timed steps and
+    one traced step of `make_train_step` on random bf16 weights from seed
+    0, with its checks (see the module docstring)."""
+    import gc
+
+    from repro_torch.configs import ARCHS, RunConfig
+    from repro_torch.data import DataConfig, batch_at_step
+    from repro_torch.models import init, loss_fn
+    from repro_torch.train import loop as loop_mod
+    from repro_torch.tree import leaves
+    kernels = importlib.import_module("repro_torch.kernels")
+    cfg = dataclasses.replace(ARCHS[arch], n_layers=layers)
+    full = ARCHS[arch].n_layers
+    rc = RunConfig(optimizer=optimizer, learning_rate=TRAIN_LR,
+                   warmup_steps=0, microbatches=mb, remat=True,
+                   remat_policy="nothing", attn_impl="flash_jnp",
+                   attn_chunk=1024)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                  device="cuda")
+    n_params = sum(p.numel() for p in leaves(params))
+    # the optimizer's share of each step: CUDA events around the update
+    # the step hands its optimizer (the step itself is unchanged)
+    opt_events, real = [], loop_mod.make_optimizer
+
+    def timed_optimizer(name, weight_decay=0.1):
+        init_fn, update = real(name, weight_decay)
+
+        def timed(p, g, s, lr, grad_scale=None):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = update(p, g, s, lr, grad_scale=grad_scale)
+            ev[1].record()
+            opt_events.append(ev)
+            return out
+        return init_fn, timed
+    loop_mod.make_optimizer = timed_optimizer
+    try:
+        step_fn = loop_mod.make_train_step(cfg, rc, total_steps=100)
+        opt_init = real(optimizer)[0]
+    finally:
+        loop_mod.make_optimizer = real
+    state = opt_init(params)
+    dc = DataConfig(seed=0, vocab=cfg.vocab, seq_len=seq,
+                    global_batch=batch)
+    batches = [batch_at_step(dc, i, device="cuda")
+               for i in range(TRAIN_TIMED + 2)]
+    counted = ("int8_gemm", "sweep_eval", "flash_attention",
+               "decode_attention")
+    for name in counted:
+        reset_counts(getattr(kernels, name))
+
+    def sample(t):
+        flat = t.detach().reshape(-1)
+        return flat[::max(1, flat.numel() // TRAIN_SAMPLE)][
+            :TRAIN_SAMPLE].clone()
+    before = [sample(p) for p in leaves(params)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, m = step_fn(params, state, batches[0], 0)
+    loss0, gnorm0 = m["loss"].item(), m["gnorm"].item()
+    warm_s = time.perf_counter() - t0
+    # every leaf's f32 second moment moved (each leaf had a gradient and
+    # an update); every leaf a step of ~lr can move in bf16 moved
+    still = sum(not bool(sample(v).any()) for v in leaves(state["v"]))
+    moved = [not torch.equal(b, sample(p))
+             for b, p in zip(before, leaves(params))]
+    pinned = [p.dtype == torch.bfloat16 and bool(
+        (b.float().abs() >= TRAIN_BF16_MOVES).all())
+        for b, p in zip(before, leaves(params))]
+    unchanged = sum(not mv and not pin for mv, pin in zip(moved, pinned))
+    n_pinned = sum(not mv and pin for mv, pin in zip(moved, pinned))
+    del before
+    ms, losses, gnorms = [], [loss0], [gnorm0]
+    for i in range(1, TRAIN_TIMED + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        params, state, m = step_fn(params, state, batches[i], i)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(m["loss"].item())
+        gnorms.append(m["gnorm"].item())
+    opt_ms = [a.elapsed_time(b) for a, b in opt_events[1:TRAIN_TIMED + 1]]
+    peak_alloc = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_res = torch.cuda.max_memory_reserved() / 2 ** 30
+    prof = profile_window(torch, lambda: step_fn(
+        params, state, batches[TRAIN_TIMED + 1], TRAIN_TIMED + 1))
+    launches = {name: getattr(kernels, name).launches for name in counted}
+    # the autograd graph of a short forward: no SelectBackward0 into a
+    # stacked (per-period) leaf
+    short = {k: v[:1, :TRAIN_GRAPH_SEQ] for k, v in batches[0].items()}
+    loss, _ = loss_fn(params, short, cfg, rc)
+    selects = select_into(loss, {id(t) for t in leaves(params["slots"])})
+    del loss
+
+    step_ms = sum(ms) / len(ms)
+    opt_mean = sum(opt_ms) / len(opt_ms)
+    tokens = batch * seq
+    flops = train_flops(cfg, batch, seq)
+    tflops = flops / (step_ms / 1e3) / 1e12
+    idle = (1 - prof["busy_ms"] / prof["wall_ms"] if prof["busy_ms"] > 0
+            else None)
+    depth = (f"{layers} layers" if layers == full
+             else f"{layers} of its {full} layers")
+    # random logits of std s = TRAIN_INIT_STD·sqrt(d_model) (the final
+    # norm's output has unit RMS): cross entropy ~ ln(vocab) + s^2 / 2
+    expect0 = math.log(cfg.vocab) + TRAIN_INIT_STD ** 2 * cfg.d_model / 2
+    print(f"train ({label}) {arch}, {depth}, {n_params / 1e9:.3f} B params "
+          f"bf16, {optimizer}, batch {batch} x seq {seq}"
+          f"{f' in {mb} microbatches' if mb > 1 else ''}, remat "
+          f"'nothing', flash_jnp chunk 1024, lr {TRAIN_LR}: step-0 loss "
+          f"{loss0!r} (ln vocab {math.log(cfg.vocab)!r} + the init's "
+          f"logit variance / 2 = {expect0!r}), losses {losses!r}, gnorms "
+          f"{gnorms!r}; warm-up step {warm_s!r} s [{card}]")
+    print(f"train ({label}) timed over {TRAIN_TIMED} steps (CUDA events, "
+          f"steps {ms!r} ms): {step_ms!r} ms/step = forward + backward "
+          f"{step_ms - opt_mean!r} ms + optimizer {opt_mean!r} ms "
+          f"({opt_ms!r}); {tokens / (step_ms / 1e3)!r} tokens/s; model "
+          f"{flops / 1e12!r} TFLOP/step (6·N·tokens + causal attention x3, "
+          f"N = {cfg.active_param_count()}) -> {tflops!r} TFLOP/s = "
+          f"{tflops / (BF16_OPS_PER_S / 1e12):.2%} of the H100 SXM's "
+          f"dense bf16 989 TFLOP/s; peak allocated {peak_alloc!r} GiB, "
+          f"reserved {peak_res!r} GiB [{card}]")
+    if prof["busy_ms"] > 0:
+        print(f"train ({label}) traced step (profiler on): wall "
+              f"{prof['wall_ms']!r} ms, device busy {prof['busy_ms']!r} ms, "
+              f"idle share {idle!r}")
+        for name, us in prof["kernels"][:8]:
+            print(f"  device {us / 1e3!r} ms ({us / 1e3 / prof['busy_ms']:.1%}"
+                  f"): {name[:100]}")
+    else:
+        print(f"train ({label}) traced step: the profiler recorded no device "
+              f"time (idle share not measured)")
+    print(f"train ({label}) checks: after step 1, leaves whose second "
+          f"moment stayed 0: {still}; leaves unmoved: {unchanged} of "
+          f"{len(moved)} ({n_pinned} more unmoved whose sampled |p| all reach "
+          f"2^7·lr = {TRAIN_BF16_MOVES}, where a bf16 step of ~lr rounds "
+          f"away); kernel launches over the steps {launches}; "
+          f"SelectBackward0 into a stacked leaf: {selects}")
+    finite = all(math.isfinite(v) for v in losses + gnorms)
+    if (not finite or abs(loss0 - expect0) > 0.5 or unchanged or still
+            or any(launches.values()) or selects):
+        raise RuntimeError(f"training ({label}) {arch} failed its checks")
+    del params, state, batches, step_fn, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"label": label, "arch": arch, "layers": layers,
+            "params": n_params, "step_ms": step_ms, "opt_ms": opt_mean,
+            "tokens_per_s": tokens / (step_ms / 1e3), "tflops": tflops,
+            "peak_alloc_gib": peak_alloc, "peak_reserved_gib": peak_res,
+            "idle_share": idle}
+
+
+def train_parity_and_resume(torch, card: str) -> None:
+    """Phase 30d: one f32 step of reduced qwen2-7b widened to d_model 256
+    on the card against the same step on the CPU; then the train CLI as a
+    subprocess, crashed at step TRAIN_CLI_FAIL and rerun, against an
+    uninterrupted run of the same flags."""
+    import shutil
+
+    from repro_torch.configs import ARCHS, RunConfig, reduced
+    from repro_torch.data import DataConfig, batch_at_step
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import init
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import leaves, map_tree
+    cfg = dataclasses.replace(reduced(ARCHS[ARCH]), **TRAIN_WIDE)
+    rc = RunConfig(learning_rate=1e-3, warmup_steps=0, remat=True,
+                   attn_impl="flash_jnp", attn_chunk=16)
+    cpu = init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card_params = map_tree(lambda t: t.to("cuda", copy=True), cpu)
+    b = batch_at_step(DataConfig(seed=0, vocab=cfg.vocab, seq_len=64,
+                                 global_batch=4), 0, device="cpu")
+    step = make_train_step(cfg, rc)
+    _, _, mc = step(cpu, adamw_init(cpu), b, 0)
+    _, _, mg = step(card_params, adamw_init(card_params),
+                    {k: v.to("cuda") for k, v in b.items()}, 0)
+    d_loss = abs(mg["loss"].item() - mc["loss"].item()) / mc["loss"].item()
+    d_gnorm = abs(mg["gnorm"].item() - mc["gnorm"].item()) / mc["gnorm"].item()
+    worst, flips, n = 0.0, 0, 0
+    for pc, pg in zip(leaves(cpu), leaves(card_params)):
+        diff = (pg.detach().cpu() - pc.detach()).abs()
+        worst = max(worst, diff.max().item())
+        flips += int((diff > 1e-6 * pc.detach().abs().max()).sum())
+        n += diff.numel()
+    print(f"train (d) one f32 step of {cfg.name} at d_model "
+          f"{cfg.d_model} on the card against the CPU: loss rel "
+          f"{d_loss!r} (tol {TRAIN_LOSS_TOL}), gnorm rel {d_gnorm!r} (tol "
+          f"{TRAIN_GNORM_TOL}); updated params max|d| {worst!r} (bound 2·lr "
+          f"= {2 * rc.learning_rate}: Adam's first step is ~lr·sign(g), so "
+          f"an element whose gradient is ~0 may move the other way), {flips} "
+          f"of {n} elements beyond 1e-6·max|p| (at most "
+          f"{TRAIN_FLIP_SHARE:.0e} of them) [{card}]")
+    if (d_loss > TRAIN_LOSS_TOL or d_gnorm > TRAIN_GNORM_TOL
+            or worst > 2 * rc.learning_rate * (1 + 1e-3)
+            or flips > TRAIN_FLIP_SHARE * n):
+        raise RuntimeError("the train step on the card differs from the CPU")
+
+    shutil.rmtree(os.path.join(HERE, TRAIN_CKPT), ignore_errors=True)
+    flags = ["--smoke", "--steps", str(TRAIN_CLI_STEPS)]
+    cli = [sys.executable, "-m", "repro_torch.launch.train", *flags,
+           "--ckpt-dir", TRAIN_CKPT, "--ckpt-every", str(TRAIN_CLI_EVERY)]
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    crash = subprocess.run(cli + ["--fail-at", str(TRAIN_CLI_FAIL)],
+                           capture_output=True, text=True, cwd=HERE,
+                           env=env, timeout=600)
+    want = f"injected node failure at step {TRAIN_CLI_FAIL}"
+    if crash.returncode == 0 or want not in crash.stderr:
+        raise RuntimeError(f"the crashed train CLI exited "
+                           f"{crash.returncode}:\n{crash.stderr[-3000:]}")
+    rerun = subprocess.run(cli, capture_output=True, text=True, cwd=HERE,
+                           env=env, timeout=600)
+    if rerun.returncode != 0:
+        raise RuntimeError(f"the resumed train CLI exited "
+                           f"{rerun.returncode}:\n{rerun.stderr[-3000:]}")
+    out = json.loads(rerun.stdout)
+    cli_s = time.perf_counter() - t0
+    _, full = train_cli.run(train_cli.parse_args(flags))
+    resumed_at = (TRAIN_CLI_FAIL // TRAIN_CLI_EVERY) * TRAIN_CLI_EVERY
+    same = (out["loss_first"] == full.losses[resumed_at]
+            and out["loss_last"] == full.losses[-1])
+    print(f"train (d) CLI `python -m repro_torch.launch.train "
+          f"{' '.join(cli[3:])}`: --fail-at {TRAIN_CLI_FAIL} exited "
+          f"{crash.returncode} ({want}), the rerun exited 0 resumed from "
+          f"{out['resumed_from']} with loss_first {out['loss_first']!r} > "
+          f"loss_last {out['loss_last']!r}, keys {sorted(out)}; "
+          f"{cli_s:.1f} s for both; an uninterrupted in-process run of the "
+          f"same flags: losses at steps {resumed_at} and "
+          f"{TRAIN_CLI_STEPS - 1} {full.losses[resumed_at]!r}, "
+          f"{full.losses[-1]!r}: bit for bit {same} [{card}]")
+    if (out["resumed_from"] != resumed_at
+            or not out["loss_last"] < out["loss_first"] or not same):
+        raise RuntimeError("the resumed train CLI differs from the "
+                           "uninterrupted run")
+
+
+def train_phase(torch, card: str) -> list[dict]:
+    """Phase 30: training on the card (see the module docstring)."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    print(f"train: {held!r} GiB allocated before the training runs (at most "
+          f"{FREED_GIB})")
+    if held > FREED_GIB:
+        raise RuntimeError(f"{held} GiB still allocated before training")
+    t0 = time.perf_counter()
+    runs = [train_case(torch, card, *case) for case in TRAIN_CASES]
+    train_parity_and_resume(torch, card)
+    print(f"train: phase 30 took {time.perf_counter() - t0:.1f} s")
+    return runs
 
 
 def main() -> int:
@@ -2944,8 +3294,9 @@ def main() -> int:
 
     fam_kernels = families(torch, card)     # phases 18-28
     paper_run = paper_phase(torch, card)    # phase 29
+    train_phase(torch, card)                # phase 30
 
-    # --- 30. result lines ----------------------------------------------------
+    # --- 31. result lines ----------------------------------------------------
     kernels = [{
         "name": "int8_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_gemm.cu",

@@ -15,9 +15,13 @@ name, so each function has a counterpart a reader can find:
 * `repro_torch.models` / `repro_torch.serving` — the decoder of every
   family (prefill forward and decode step), the fixed-batch
   `ServeSession` and the continuous-batching engine over a `DecodeCore`.
-* `repro_torch.launch` — the CLIs: campaigns, serving, the paper's
-  experiments, and the kernels' benchmarks.
+* `repro_torch.optim` / `repro_torch.data` / `repro_torch.train` — the
+  optimizers and schedule, the synthetic token pipeline, and the train
+  step and loop with checkpoints and fault tolerance.
+* `repro_torch.launch` — the CLIs: campaigns, serving, training, the
+  paper's experiments, and the kernels' benchmarks.
 * `repro_torch.convert` — the JAX package's parameters as torch tensors.
+* `repro_torch.tree` — walking nested dicts and lists of tensors.
 
 Entry points run on `"cuda"` unless the caller passes `device="cpu"`.
 The package imports torch and never jax or `repro`.

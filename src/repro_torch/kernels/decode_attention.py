@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from .build import KernelBuild, build_library
-from .flash_attention import _repeat, compare_to_plain
+from .flash_attention import _repeat, compare_to_plain, refuse_autograd
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)    # head widths the CUDA kernel is built for
@@ -135,7 +135,10 @@ def decode_attention(q, k_cache, v_cache, length, *, block_kv: int = 512):
     (bh, 1, d) in q's dtype.
 
     `block_kv` keeps the TPU kernel's shape contract; the CUDA kernel
-    splits S by its own plan, which changes only the order of f32 sums."""
+    splits S by its own plan, which changes only the order of f32 sums.
+    Forward only: raises a RuntimeError while autograd records and an
+    input requires grad (`flash_attention.refuse_autograd`)."""
+    refuse_autograd("decode_attention", q, k_cache, v_cache)
     rep = check_shapes(q, k_cache, v_cache, block_kv)
     dev = q.device
     if k_cache.device != dev or v_cache.device != dev:

@@ -159,13 +159,29 @@ def check_shapes(q, k, v, block_q: int, block_kv: int) -> int:
     return bh // bh_kv
 
 
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise if autograd would record through a forward-only kernel: its
+    output would carry no grad_fn and the inputs' gradients would be lost
+    without an error.  Checked before the device dispatch, so the plain
+    version on the CPU refuses too."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward (the JAX package cannot "
+            f"differentiate its Pallas kernel either); call it under "
+            f"torch.no_grad() or torch.inference_mode(), or train with "
+            f"attn_impl='flash_jnp' or 'naive'")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     block_q: int = 128, block_kv: int = 128):
     """q (bh, sq, d), k/v (bh_kv, sk, d) -> (bh, sq, d) in q's dtype.
 
     `block_q` / `block_kv` keep the TPU kernel's shape contract; the CUDA
     kernel tiles by its own fixed blocks (128 query rows and 128-key tiles
-    in bf16), which changes only the order of f32 sums."""
+    in bf16), which changes only the order of f32 sums.  Forward only:
+    raises a RuntimeError while autograd records and an input requires
+    grad (`refuse_autograd`)."""
+    refuse_autograd("flash_attention", q, k, v)
     rep = check_shapes(q, k, v, block_q, block_kv)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")

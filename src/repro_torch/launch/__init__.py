@@ -7,6 +7,9 @@
   session (route report, gated against ungated steady tokens/s) or
   continuous-batching synthetic traffic (`--requests N`, optionally
   `--adaptive`), on the card unless `--device cpu`.
+* `python -m repro_torch.launch.train` — the training CLI (a few steps
+  of one arch, checkpoints, injected failure and auto-resume), on the
+  card unless `--device cpu`.
 * `python -m repro_torch.launch.paper` — the paper's seven artefacts
   (Figs. 2, 7 + Table II, 9, 10, 11/12, 13 and Table VI) as CSV and
   derived JSON, the sweeps on the sweep kernel with `--backend pallas`,

@@ -132,7 +132,9 @@ def attend(q, k, v, impl: str = "flash_jnp", chunk: int = 1024,
     """Causal self-attention by `impl` ("naive" | "flash_jnp" | "pallas",
     the last the hand-written flash-attention kernel).  As in the JAX
     package, every impl goes naive when sk <= chunk or sk is not a multiple
-    of chunk."""
+    of chunk.  The kernel is forward only: "pallas" raises a RuntimeError
+    while autograd records and an input requires grad, as the JAX
+    package's Pallas kernel cannot be differentiated."""
     sk = k.shape[1]
     if impl == "naive" or sk % max(chunk, 1) != 0 or sk <= chunk:
         return naive_causal(q, k, v, window=window)

@@ -22,12 +22,14 @@ Parameters are a plain dict keyed like the JAX package's pytree —
 "embed", "lm_head", "final_norm.scale", "slots"[s]."attn"."wq" stacked
 over periods, and so on — so `repro_torch.convert.params_from_jax` maps
 one onto the other leaf by leaf.  The layer loop is a Python loop over
-periods and slots (the JAX package scans over periods).
+periods and slots (the JAX package scans over periods); `forward` is
+differentiable, with `rc.remat` applied per period.
 
 Entry points:
   init(gen, cfg, device)                     -> params
   forward(params, tokens, cfg, rc[, image_embeds], plan=plan)
-                                             -> logits, aux  (prefill)
+                                             -> logits, aux  (train, prefill)
+  loss_fn(params, batch, cfg, rc)            -> loss, {"ce", "aux"}
   init_cache(cfg, rc, batch, max_len, device[, n_image_tokens])
                                              -> cache (list of dicts)
   init_paged_cache(cfg, rc, n_slots, n_blocks, block_size, device
@@ -51,6 +53,9 @@ import dataclasses
 import math
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ..configs.base import ModelConfig, RunConfig
 from .attention import _gqa_expand, attend, decode_attend
@@ -376,7 +381,9 @@ def _paged_view(pool, block_tables):
 # --- forward (prefill) and decode --------------------------------------------
 
 def _layer(tree, i: int):
-    """Layer i of a stacked parameter subtree (views, no copies)."""
+    """Layer i of a stacked parameter subtree (views, no copies): how the
+    decode step, which runs without autograd, takes its layers (`forward`
+    unbinds each leaf once instead, `_per_period`)."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
@@ -391,10 +398,10 @@ def _embed(params, tokens, cfg: ModelConfig):
     dtype = dtype_of(cfg.compute_dtype)
     if cfg.family != "audio":
         return params["embed"][tokens].to(dtype)
-    table = params["embed"]
-    x = table[0][tokens[..., 0]].float()
-    for i in range(1, table.shape[0]):
-        x = x + table[i][tokens[..., i]].float()
+    tables = params["embed"].unbind(0)
+    x = tables[0][tokens[..., 0]].float()
+    for i in range(1, len(tables)):
+        x = x + tables[i][tokens[..., i]].float()
     return x.to(dtype)
 
 
@@ -442,23 +449,54 @@ def _apply_ffn(slot: Slot, sp, x, cfg: ModelConfig, plan=None):
     return x + y, aux
 
 
+def _per_period(tree, n: int) -> list:
+    """The n per-period views of a stacked parameter subtree, each leaf
+    unbound once along its period axis.  Under autograd one
+    UnbindBackward0 per leaf stacks the n row gradients once; taking
+    tree[i] in every period would add a SelectBackward0 per period, whose
+    backward fills a zero tensor the size of the whole leaf."""
+    if isinstance(tree, dict):
+        per = {k: _per_period(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    return tree.unbind(0)
+
+
+def _dots_saveable():
+    """Selective-checkpoint contexts that keep every matmul's output and
+    recompute the rest (the counterpart of
+    `jax.checkpoint_policies.dots_saveable`)."""
+    aten = torch.ops.aten
+    dots = {aten.mm.default, aten.bmm.default, aten.addmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in dots
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return create_selective_checkpoint_contexts(policy)
+
+
 def forward(params, tokens, cfg: ModelConfig, rc: RunConfig,
             image_embeds=None, plan=None):
-    """The full-sequence forward (prefill).  tokens: (b, l) int, or (b, l,
-    nb) for audio.  Returns (logits (b, l, vocab) (audio: (b, l, nb,
-    vocab)), aux): aux sums the MoE load-balancing losses over the MoE
-    slots (0.0 for a model without one).  A vlm model needs
+    """The full-sequence forward (train and prefill).  tokens: (b, l) int,
+    or (b, l, nb) for audio.  Returns (logits (b, l, vocab) (audio: (b,
+    l, nb, vocab)), aux): aux sums the MoE load-balancing losses over the
+    MoE slots (0.0 for a model without one).  A vlm model needs
     `image_embeds` (b, n_image_tokens, d_model): each cross slot projects
     its K/V from them ("xattn-KV", not normalized), as the JAX package
-    does; other families ignore them.  `plan` (a
-    KernelPlanTable) gates quantized projections per label, as in
-    `decode_step`; attention runs `attend(impl=rc.attn_impl)` on
-    positions arange(l); a mamba slot runs the chunked SSD with chunk
-    min(cfg.ssm.chunk, l), which must divide l (ValueError otherwise).
+    does; other families ignore them.  `plan` (a KernelPlanTable) gates
+    quantized projections per label, as in `decode_step`; attention runs
+    `attend(impl=rc.attn_impl)` on positions arange(l); a mamba slot runs
+    the chunked SSD with chunk min(cfg.ssm.chunk, l), which must divide l
+    (ValueError otherwise).
 
-    The JAX package's `remat` and sharding constraints are training and
-    mesh concerns and are not applied here; the layer loop is a Python
-    loop over periods (so `scan_unroll` has nothing to unroll)."""
+    With `rc.remat`, and only while autograd records (a prefill under
+    `torch.no_grad` or `inference_mode` runs plain), each period runs
+    under `torch.utils.checkpoint.checkpoint` (non-reentrant): policy
+    "nothing" keeps only the period's input and recomputes the rest in
+    the backward, "dots" also keeps every matmul's output, as the JAX
+    package's `jax.checkpoint` policies do.  The JAX package's sharding
+    constraints are mesh concerns and are not applied; the layer loop is
+    a Python loop over periods (so `scan_unroll` has nothing to
+    unroll)."""
     slots = period_slots(cfg)
     if image_embeds is None and any(s.mixer == "cross" for s in slots):
         raise ValueError(f"{cfg.name}: a vlm forward needs image_embeds "
@@ -467,10 +505,12 @@ def forward(params, tokens, cfg: ModelConfig, rc: RunConfig,
     x = _embed(params, tokens, cfg)
     nh, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
     pos = torch.arange(l, device=x.device)[None, :]
-    aux = 0.0
-    for i in range(n_periods(cfg)):
-        for slot, slot_params in zip(slots, params["slots"]):
-            sp = _layer(slot_params, i)
+    L = n_periods(cfg)
+    layers = [_per_period(slot_params, L) for slot_params in params["slots"]]
+
+    def period(i, x, aux):
+        for slot, per in zip(slots, layers):
+            sp = per[i]
             if slot.mixer == "cross":
                 # the image K/V first, then the mixer: the JAX package's
                 # order of the route trace
@@ -494,8 +534,38 @@ def forward(params, tokens, cfg: ModelConfig, rc: RunConfig,
                 y = attn_out_proj(sp["attn"], o.reshape(b, l, nh * dh), plan)
             x, a = _apply_ffn(slot, sp, x + y, cfg, plan)
             aux = aux + a
+        return x, aux
+
+    remat = rc.remat and torch.is_grad_enabled()
+    context_fn = (_dots_saveable if rc.remat_policy == "dots"
+                  else noop_context_fn)
+    aux = 0.0
+    for i in range(L):
+        if remat:
+            x, aux = checkpoint(period, i, x, aux, use_reentrant=False,
+                                context_fn=context_fn)
+        else:
+            x, aux = period(i, x, aux)
     x = rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps)
     return _lm_logits(params, x, cfg, plan), aux
+
+
+def loss_fn(params, batch, cfg: ModelConfig, rc: RunConfig):
+    """batch: {"tokens", "targets"[, "image_embeds"]} -> (ce + aux,
+    {"ce", "aux"}): the mean next-token cross entropy, f32 logsumexp of
+    the logits minus the gold logit, plus the MoE aux loss (0 without
+    MoE).  The gold logit is a gather, the same numbers as the JAX
+    package's masked sum over the vocab axis (which keeps that reduction
+    local to a vocab-sharded tensor: `rc.shard_loss` is a mesh concern
+    and is ignored here)."""
+    logits, aux = forward(params, batch["tokens"], cfg, rc,
+                          image_embeds=batch.get("image_embeds"))
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, batch["targets"].long()[..., None])[..., 0]
+    ce = torch.mean(lse - gold)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def _mask_rows(new, old, active):

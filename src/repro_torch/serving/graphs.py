@@ -48,6 +48,8 @@ import threading
 
 import torch
 
+from ..tree import leaves
+
 capture_lock = threading.Lock()
 
 # kernel wrappers (attributes of repro_torch.kernels) whose counters a
@@ -74,19 +76,6 @@ def _delta(after: list, before: list) -> list:
     return [(a - b, [{k: da[k] - db[k] for k in da}
                      for da, db in zip(dicts_a, dicts_b)])
             for (a, dicts_a), (b, dicts_b) in zip(after, before)]
-
-
-def leaves(tree):
-    """The tensors of a nested dict / list / tuple (a cache or a parameter
-    tree), in order."""
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from leaves(v)
-    elif torch.is_tensor(tree):
-        yield tree
 
 
 def _add(delta: list, sign: int = 1) -> None:

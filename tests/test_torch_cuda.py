@@ -1002,3 +1002,143 @@ def test_paper_fig13_backends_equal_on_card(cuda):
                                    engine=SweepEngine(device="cuda"))
     assert kernel.launches > before
     assert pal == vec
+
+
+# --- training on the card ---------------------------------------------------
+
+# reduced qwen2-7b widened (tests/test_torch_lowbit_serving.py's width)
+TRAIN_WIDE = dict(d_model=256, d_ff=512, d_head=64, vocab=512)
+
+
+def _train_cfg(dtype="float32", **kw):
+    import dataclasses
+    return dataclasses.replace(reduced(ARCHS["qwen2-7b"]), **TRAIN_WIDE,
+                               param_dtype=dtype, compute_dtype=dtype, **kw)
+
+
+def _train_batch(cfg, batch=4, seq=64, step=0):
+    from repro_torch.data import DataConfig, batch_at_step
+    return batch_at_step(DataConfig(seed=0, vocab=cfg.vocab, seq_len=seq,
+                                    global_batch=batch), step, device="cpu")
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One f32 AdamW step on the card against the same step on the CPU:
+    loss within 1e-5 and gnorm within 1e-4 relative; the updated params
+    within 2·lr (Adam's first step is ~lr·sign(g): an element whose
+    gradient is ~0 may move the other way on the other device), at most
+    1e-3 of the elements beyond 1e-6·max|p|."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import leaves, map_tree
+    cfg = _train_cfg()
+    rc = RunConfig(learning_rate=1e-3, warmup_steps=0, remat=True,
+                   attn_chunk=16)
+    cpu = init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = map_tree(lambda t: t.to(cuda, copy=True), cpu)
+    b = _train_batch(cfg)
+    step = make_train_step(cfg, rc)
+    _, _, mc = step(cpu, adamw_init(cpu), b, 0)
+    _, _, mg = step(card, adamw_init(card),
+                    {k: v.to(cuda) for k, v in b.items()}, 0)
+    assert abs(mg["loss"].item() / mc["loss"].item() - 1) <= 1e-5
+    assert abs(mg["gnorm"].item() / mc["gnorm"].item() - 1) <= 1e-4
+    flips = n = 0
+    for pc, pg in zip(leaves(cpu), leaves(card)):
+        diff = (pg.detach().cpu() - pc.detach()).abs()
+        assert diff.max().item() <= 2 * rc.learning_rate * (1 + 1e-3)
+        flips += int((diff > 1e-6 * pc.detach().abs().max()).sum())
+        n += diff.numel()
+    assert flips <= 1e-3 * n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["adamw", "adafactor"])
+def test_optimizer_update_on_card_matches_cpu(cuda, which, dtype,
+                                              monkeypatch):
+    """Three updates with the same params, grads and lr on both devices,
+    leaves cut into slices (SLICE_ELEMS shrunk): f32 within 1e-6 of each
+    leaf's largest magnitude, bf16 within one bf16 ulp."""
+    from repro_torch.optim import adamw as adamw_mod
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import leaves, map_tree
+    monkeypatch.setattr(adamw_mod, "SLICE_ELEMS", 100)
+    gen = torch.Generator().manual_seed(0)
+    shapes = [(16, 8), (8,), (3, 8, 12), (2, 3, 4, 6), (3, 1, 6)]
+    params = [torch.randn(s, generator=gen).to(dtype) for s in shapes]
+    grads = [(torch.randn(s, generator=gen) * 0.3).to(dtype)
+             for s in shapes]
+    opt_init, update = make_optimizer(which)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = map_tree(lambda t: t.to(dev, copy=True), params)
+        g = map_tree(lambda t: t.to(dev), grads)
+        st = opt_init(p)
+        for lr in (3e-3, 1e-2, 5e-3):
+            update(p, g, st, lr)
+        out[str(dev)] = [t.cpu() for t in leaves((p, st))]
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        if a.dtype == torch.bfloat16:
+            d = (a.view(torch.int16).int() - b.view(torch.int16).int())
+            assert d.abs().max().item() <= 1
+        elif a.is_floating_point():
+            scale = max(a.abs().max().item(), 1e-30)
+            assert (a - b).abs().max().item() <= 1e-6 * scale
+        else:
+            assert torch.equal(a, b)
+
+
+def test_train_step_launches_no_kernel(cuda):
+    """A bf16 train step (flash_jnp attention, float weights) launches
+    none of the four kernels, as the JAX package's runs none of its
+    Pallas kernels; the attention kernels refuse autograd on the card
+    and run under no_grad."""
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adafactor_init
+    from repro_torch.train import make_train_step
+    cfg = _train_cfg("bfloat16")
+    params = init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                  device="cuda")
+    counted = (int8_gemm, sweep_eval, flash_attention, decode_attention)
+    before = [w.launches for w in counted]
+    step = make_train_step(cfg, RunConfig(optimizer="adafactor",
+                                          attn_chunk=32))
+    _, _, m = step(params, adafactor_init(params),
+                   {k: v.to(cuda) for k, v in _train_batch(cfg).items()}, 3)
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["gnorm"])
+    assert [w.launches for w in counted] == before
+    q, k, v = _attn_inputs([(1, 128, 4, 64)] * 3, torch.bfloat16, cuda)
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, k, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.decode_attention(q[:, :1], k, v, 7)
+    with torch.no_grad():
+        ops.flash_attention(q, k, v)
+    assert flash_attention.launches == before[2] + 1
+
+
+def test_remat_lowers_peak_memory(cuda):
+    """The peak memory of a forward and backward at 4 layers, 4 x 1024
+    tokens: remat below no remat, "dots" between the two."""
+    from repro_torch.models import loss_fn
+    from repro_torch.tree import leaves
+    cfg = _train_cfg("bfloat16", n_layers=4)
+    params = init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                  device="cuda")
+    for p in leaves(params):
+        p.requires_grad_(True)
+    b = {k: v.to(cuda) for k, v in _train_batch(cfg, seq=1024).items()}
+    peak = {}
+    for name, kw in (("off", dict(remat=False)),
+                     ("dots", dict(remat=True, remat_policy="dots")),
+                     ("nothing", dict(remat=True))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss, _ = loss_fn(params, b, cfg, RunConfig(attn_chunk=256, **kw))
+        torch.autograd.grad(loss, list(leaves(params)))
+        del loss
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() - base
+    assert peak["nothing"] < peak["dots"] < peak["off"], peak
