@@ -17,8 +17,9 @@ paged, slot-masked engine, also adaptive and with the int8 KV pool) and
 its serving CLI, its prefill forward (one
 2048-token prompt through the flash-attention kernel) with INT8 and FP8
 weights, the batched What/When/Where sweep with its design-space
-campaigns, and the paper's own experiments on the sweep kernel.  In
-order it:
+campaigns, the paper's own experiments on the sweep kernel, and the
+distributed layer (the row-sharded sweep over a process group, the int8
+compressed all-reduce).  In order it:
 
 1. prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions and the TF32 switches (both off);
@@ -210,9 +211,10 @@ order it:
    mamba2-780m at full size with AdamW, batch 8 x 1024 (the SSD's
    backward); each with remat (policy "nothing"), one warm-up step,
    TRAIN_TIMED steps timed by CUDA events (forward + backward and the
-   optimizer apart), tokens/s, model TFLOP/s (the JAX package's
-   roofline formula, copied) and its share of 989 TFLOP/s, peak memory
-   and a traced step (top kernels, idle share); each checks finite
+   optimizer apart), tokens/s, model TFLOP/s
+   (`launch/roofline.py:model_flops`) and its share of 989 TFLOP/s, the
+   analytic roofline terms of `Roofline` beside the measured step, peak
+   memory and a traced step (top kernels, idle share); each checks finite
    losses and gnorms, the step-0 loss within 0.5 of ln(vocab), every
    leaf moved by step 1, zero launches of all four kernels across its
    steps, and no SelectBackward0 into a stacked leaf; (d) one f32 step
@@ -222,7 +224,26 @@ order it:
    `--fail-at 25` (non-zero exit) and rerun: resumed from 20, loss_last
    < loss_first, and its losses bit for bit those of an uninterrupted
    run of the same flags;
-31. prints one JSON line of kernel numbers, the card line, and last
+31. runs the distributed layer (`distributed_phase()`): (a) a world of 1
+   under NCCL, `launch.distributed.initialize()` from the REPRO_* env
+   vars on a free localhost port: `distributed_engine(chunk_rows=512)`
+   plans the golden grid with backend "vectorized" and "pallas" through
+   the row-sharded path (every verdict equal to
+   tests/golden/planner_verdicts.csv and to the unsharded engine, >= 2
+   chunks, the sweep kernel launched on pallas) and runs the golden
+   campaign through it (front byte-equal); (c) in the same group,
+   `optim.grad_compress.compressed_psum` on a bf16 tree of qwen2-7b's
+   parameter shapes at 8 layers (2.95 B elements, from seed 0 on the
+   card): ms per call by CUDA events, the bytes on the wire, the HBM
+   bytes bound, peak memory, two all-reduces per leaf, and the embedding
+   and one stacked MLP leaf bit for bit against the same call under a
+   gloo group on the CPU; the group is destroyed; (b) two gloo ranks
+   sharing the card (`chip_smoke.py --sweep-rank` subprocesses, waited on
+   with a timeout and killed in `finally`), each scoring its half of
+   every golden tile through the sweep kernel on cuda:0 and gathering
+   the columns on the host: both bit for bit the golden CSV, shard
+   balance n/2 each, identical plans;
+32. prints one JSON line of kernel numbers, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Phase 9 also holds the graphs: the serve's steps replay CUDA graphs
@@ -234,8 +255,9 @@ steps; phases 12, 13 and 15 replay graphs too (replays credit the
 launch counts).
 
 Each kernel's launch count in that line comes from its own main path
-(for sweep_eval, which has three entries: the default-grid campaign,
-the adaptive engine run and the paper's artefacts; for int8_gemm, which
+(for sweep_eval, which has four entries: the default-grid campaign,
+the adaptive engine run, the paper's artefacts and the row-sharded
+sweep of phase 31(a) and (b); for int8_gemm, which
 has twenty entries, each with its design and weight format: the gated
 INT8 serve, the INT8 prefill forward, the 197 calls of one decode step
 through `ops.int8_matmul(dataflow="ws")`, the same three with FP8
@@ -1709,25 +1731,6 @@ TRAIN_CKPT = os.path.join("tmp_chip", "ckpt_train")   # gitignored
 TRAIN_CLI_STEPS, TRAIN_CLI_EVERY, TRAIN_CLI_FAIL = 30, 10, 25
 
 
-def train_flops(cfg, b: int, s: int) -> float:
-    """Model FLOPs of one train step: 6·N·tokens plus causal attention,
-    forward and backward (the JAX package's
-    src/repro/launch/roofline.py:95-135, copied: model_flops and
-    _attn_flops for a "train" shape)."""
-    if cfg.family == "ssm":
-        n_attn = 0
-    elif cfg.family == "hybrid":
-        n_attn = cfg.n_layers // cfg.attn_every
-    else:
-        n_attn = cfg.n_layers
-    attn = 0.0
-    if n_attn:
-        eff = min(s, cfg.sliding_window) if cfg.sliding_window else s
-        attn = n_attn * 2.0 * b * cfg.n_heads * s * eff * cfg.head_dim() * (
-            0.5 if not cfg.sliding_window else 1.0) * 2
-    return 6.0 * cfg.active_param_count() * b * s + attn * 3.0
-
-
 def select_into(loss, ids: set) -> int:
     """SelectBackward0 nodes of loss's autograd graph that feed the
     AccumulateGrad of a tensor in `ids`."""
@@ -1755,8 +1758,9 @@ def train_case(torch, card: str, label, arch, layers, optimizer, batch,
     0, with its checks (see the module docstring)."""
     import gc
 
-    from repro_torch.configs import ARCHS, RunConfig
+    from repro_torch.configs import ARCHS, RunConfig, ShapeConfig
     from repro_torch.data import DataConfig, batch_at_step
+    from repro_torch.launch import roofline
     from repro_torch.models import init, loss_fn
     from repro_torch.train import loop as loop_mod
     from repro_torch.tree import leaves
@@ -1852,8 +1856,16 @@ def train_case(torch, card: str, label, arch, layers, optimizer, batch,
     step_ms = sum(ms) / len(ms)
     opt_mean = sum(opt_ms) / len(opt_ms)
     tokens = batch * seq
-    flops = train_flops(cfg, batch, seq)
+    shape = ShapeConfig(f"train_{seq}", seq, batch, "train")
+    flops = roofline.model_flops(cfg, shape)
     tflops = flops / (step_ms / 1e3) / 1e12
+    # the analytic roofline of this step on one card (no collective term;
+    # the model FLOPs stand in for a counted FLOP total)
+    roof = roofline.Roofline(
+        arch, shape.name, "1 card", 1, hlo_flops=flops,
+        hlo_bytes=0.0, collective_bytes=0.0, model_flops_total=flops,
+        hbm_bytes=roofline.analytic_hbm_bytes(
+            cfg, shape, 1, optimizer=optimizer, microbatches=mb, tp=1))
     idle = (1 - prof["busy_ms"] / prof["wall_ms"] if prof["busy_ms"] > 0
             else None)
     depth = (f"{layers} layers" if layers == full
@@ -1877,6 +1889,15 @@ def train_case(torch, card: str, label, arch, layers, optimizer, batch,
           f"{tflops / (BF16_OPS_PER_S / 1e12):.2%} of the H100 SXM's "
           f"dense bf16 989 TFLOP/s; peak allocated {peak_alloc!r} GiB, "
           f"reserved {peak_res!r} GiB [{card}]")
+    roof_share = roof.step_time_s / (step_ms / 1e3)
+    print(f"train ({label}) roofline (launch/roofline.py, one card): "
+          f"compute {roof.compute_s!r} s (model FLOPs at "
+          f"{roofline.PEAK_FLOPS:g} FLOP/s), memory {roof.memory_s!r} s "
+          f"(analytic HBM bytes {roof.hbm_bytes!r} at {roofline.HBM_BW:g} "
+          f"B/s), collective {roof.collective_s!r} s; bottleneck "
+          f"{roof.bottleneck}, bound {roof.step_time_s!r} s/step against "
+          f"{step_ms / 1e3!r} s measured ({roof_share:.1%} of the bound) "
+          f"[{card}]")
     if prof["busy_ms"] > 0:
         print(f"train ({label}) traced step (profiler on): wall "
               f"{prof['wall_ms']!r} ms, device busy {prof['busy_ms']!r} ms, "
@@ -1903,6 +1924,7 @@ def train_case(torch, card: str, label, arch, layers, optimizer, batch,
     return {"label": label, "arch": arch, "layers": layers,
             "params": n_params, "step_ms": step_ms, "opt_ms": opt_mean,
             "tokens_per_s": tokens / (step_ms / 1e3), "tflops": tflops,
+            "roofline_s": roof.step_time_s,
             "peak_alloc_gib": peak_alloc, "peak_reserved_gib": peak_res,
             "idle_share": idle}
 
@@ -2009,11 +2031,307 @@ def train_phase(torch, card: str) -> list[dict]:
     return runs
 
 
+# --- the distributed layer (phase 31) -------------------------------------------
+
+DIST_CHUNK_ROWS = 512        # the golden grid streams through >= 2 chunks
+DIST_RANKS = 2               # gloo ranks sharing the card in 31(b)
+DIST_TIMEOUT = 300           # seconds a 31(b) rank may take
+PSUM_LAYERS = 8              # 31(c): qwen2-7b's parameter shapes at 8 layers
+PSUM_CALLS = 3               # timed compressed_psum calls after a warm-up
+PSUM_CHECKED = ("embed", "slots/0/mlp/w_gate")   # leaves held against gloo
+DIST_OUT = os.path.join("build", "chip_smoke", "dist")   # gitignored
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def verdict_rows(entries, decisions) -> list:
+    return [[arch, sname, prec, g.label, d.best_energy, d.best_throughput,
+             str(int(d.use_cim)), d.where]
+            for (arch, sname, prec, g), d in zip(entries, decisions)]
+
+
+def sweep_rank_worker() -> int:
+    """One rank of phase 31(b) (`chip_smoke.py --sweep-rank`, REPRO_*
+    from the parent): a gloo group on the CPU, its shard of every golden
+    grid tile scored by the sweep kernel on cuda:0, the output columns
+    gathered on the host; writes its rows and telemetry to
+    $DIST_WORKER_OUT.<rank>."""
+    import torch
+    import torch.distributed as tdist
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.core import (gemms_of_model, phase_gemms_of_model,
+                                  plan_workload)
+    from repro_torch.launch import distributed as dist
+    sweep = importlib.import_module("repro_torch.kernels.sweep_eval"
+                                    ).sweep_eval
+    t0 = time.perf_counter()
+    if not dist.initialize(device="cpu"):
+        raise RuntimeError("31(b): no multi-rank gloo group")
+    engine = dist.distributed_engine(chunk_rows=DIST_CHUNK_ROWS,
+                                     device="cuda")
+    entries = list(golden_grid(ARCHS, SHAPES, gemms_of_model,
+                               phase_gemms_of_model))
+    sweep.launches = 0
+    decisions = plan_workload([g for *_, g in entries], backend="pallas",
+                              engine=engine)
+    torch.cuda.synchronize()
+    info = engine.cache_info()
+    payload = {"rows": verdict_rows(entries, decisions),
+               "launches": sweep.launches, "chunks": info["chunks"],
+               "distributed": info["distributed"],
+               "engine_device": str(engine.device),
+               "backend": tdist.get_backend(),
+               "seconds": time.perf_counter() - t0}
+    rank = tdist.get_rank()
+    tdist.destroy_process_group()
+    with open(f"{os.environ['DIST_WORKER_OUT']}.{rank}", "w") as f:
+        json.dump(payload, f)
+    return 0
+
+
+def gloo_ranks_on_card(card: str, golden) -> dict:
+    """Phase 31(b): DIST_RANKS gloo ranks sharing the card, as
+    subprocesses (waited on with a timeout, killed in `finally`)."""
+    from repro_torch.launch import distributed as dist
+    os.makedirs(os.path.join(HERE, DIST_OUT), exist_ok=True)
+    out = os.path.join(HERE, DIST_OUT, "rank")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               DIST_WORKER_OUT=out,
+               **{dist.ENV_COORDINATOR: f"127.0.0.1:{free_port()}",
+                  dist.ENV_NUM_PROCESSES: str(DIST_RANKS)})
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for i in range(DIST_RANKS):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--sweep-rank"],
+                env=dict(env, **{dist.ENV_PROCESS_ID: str(i)}), cwd=HERE,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate(timeout=DIST_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (_, err) in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"31(b): a rank exited {p.returncode}:\n"
+                               f"{err[-3000:]}")
+    pays = []
+    for i in range(DIST_RANKS):
+        with open(f"{out}.{i}") as f:
+            pays.append(json.load(f))
+    half = None
+    for i, pay in enumerate(pays):
+        rows = [tuple(r) for r in pay["rows"]]
+        diffs = [j for j, (a, b) in enumerate(zip(rows, golden)) if a != b]
+        c, d = pay["chunks"], pay["distributed"]
+        half = (c["rows"] + c["padded_rows"]) // DIST_RANKS
+        print(f"31(b) rank {i} of {DIST_RANKS} ({pay['backend']} group, "
+              f"engine on {pay['engine_device']}): {len(rows)} verdicts, "
+              f"{len(diffs)} differ from tests/golden/planner_verdicts.csv; "
+              f"{c['evaluated']} chunks, {c['rows']} rows + "
+              f"{c['padded_rows']} padding; shard_balance "
+              f"{d and d['shard_balance']}; sweep_eval launches "
+              f"{pay['launches']}; {pay['seconds']!r} s in the rank "
+              f"[{card}]")
+        if (diffs or len(rows) != len(golden) or c["evaluated"] < 2
+                or not d or d["shard_balance"] != {
+                    str(j): half for j in range(DIST_RANKS)}
+                or pay["launches"] == 0 or pay["backend"] != "gloo"):
+            raise RuntimeError(f"31(b): rank {i} failed its checks")
+    if any(p["rows"] != pays[0]["rows"] for p in pays):
+        raise RuntimeError("31(b): the ranks planned differently")
+    wall = time.perf_counter() - t0
+    print(f"31(b) {DIST_RANKS} gloo ranks sharing the card: identical plans "
+          f"on every rank; {wall!r} s wall, processes included [{card}]")
+    return {"launches": sum(p["launches"] for p in pays), "wall_s": wall}
+
+
+def psum_on_card(torch, card: str) -> dict:
+    """Phase 31(c): compressed_psum at world 1 under NCCL on a bf16 tree
+    of qwen2-7b's parameter shapes at PSUM_LAYERS layers; two leaves held
+    bit for bit against the same call under gloo on the CPU."""
+    import gc
+    import torch.distributed as tdist
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init
+    from repro_torch.optim.grad_compress import (compressed_psum,
+                                                 init_error_state)
+    from repro_torch.tree import flatten_with_paths, leaves
+    cfg = dataclasses.replace(ARCHS[ARCH], n_layers=PSUM_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    grads = init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                 device="cuda")
+    errors = init_error_state(grads)
+    n_el = sum(t.numel() for t in leaves(grads))
+    n_leaves = len(list(leaves(grads)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    red, errors = compressed_psum(grads, errors)         # warm-up
+    del red
+    ms = []
+    for _ in range(PSUM_CALLS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        red, errors = compressed_psum(grads, errors)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+        del red
+    flat_g, flat_e = flatten_with_paths(grads), flatten_with_paths(errors)
+    cpu_g = {k: flat_g[k].to("cpu", copy=True) for k in PSUM_CHECKED}
+    cpu_e = {k: flat_e[k].to("cpu", copy=True) for k in PSUM_CHECKED}
+    calls, real = [0], tdist.all_reduce
+
+    def counting(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+    tdist.all_reduce = counting
+    try:
+        red, errors = compressed_psum(grads, errors)
+        torch.cuda.synchronize()
+        card_calls = calls[0]
+        peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        gloo = tdist.new_group(backend="gloo")
+        t0 = time.perf_counter()
+        want_r, want_e = compressed_psum(cpu_g, cpu_e, group=gloo)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        tdist.all_reduce = real
+    got_r, got_e = flatten_with_paths(red), flatten_with_paths(errors)
+    same = {k: bool(torch.equal(got_r[k].cpu(), want_r[k])
+                    and torch.equal(got_e[k].cpu(), want_e[k]))
+            for k in PSUM_CHECKED}
+    mean_ms = sum(ms) / len(ms)
+    wire = 4 * n_el + 4 * n_leaves
+    hbm = (2 + 4 + 4 + 4) * n_el         # read g, e; write reduced, new e
+    bound_ms = 1e3 * hbm / HBM_BYTES_PER_S
+    print(f"31(c) compressed_psum, world 1 under NCCL, on {ARCH}'s parameter "
+          f"shapes at {PSUM_LAYERS} layers ({n_el} bf16 elements, "
+          f"{n_leaves} leaves): {mean_ms!r} ms per call (CUDA events, calls "
+          f"{ms!r}); on the wire {wire} B (int32 codes, 4 B/element, + one "
+          f"f32 scale per leaf); HBM bytes bound {bound_ms!r} ms ({hbm} B: "
+          f"bf16 grads and f32 residuals read, f32 means and residuals "
+          f"written, at 3.35 TB/s), {bound_ms / mean_ms:.1%} of it; peak "
+          f"{peak!r} GiB above the {held / 2 ** 30!r} GiB of grads and "
+          f"residuals; all_reduce calls in one call {card_calls} (2 per leaf: "
+          f"{2 * n_leaves}) [{card}]")
+    print(f"31(c) against the same call under gloo on the CPU ({cpu_s!r} s "
+          f"for {', '.join(PSUM_CHECKED)}): reduced and new residual bit for "
+          f"bit {same}")
+    del grads, errors, red, cpu_g, cpu_e, want_r, want_e, got_r, got_e
+    del flat_g, flat_e
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(same.values()) or card_calls != 2 * n_leaves:
+        raise RuntimeError("31(c): compressed_psum on the card differs")
+    return {"ms": mean_ms, "bound_ms": bound_ms, "wire_bytes": wire,
+            "peak_gib": peak}
+
+
+def distributed_phase(torch, card: str, entries, golden, golden_spec,
+                      golden_front) -> dict:
+    """Phase 31: the distributed layer on the card (see the module
+    docstring).  Returns the row-sharded sweep's launch counts."""
+    import torch.distributed as tdist
+
+    from repro_torch.core import SweepEngine, plan_workload, run_campaign
+    from repro_torch.launch import distributed as dist
+    sweep = importlib.import_module("repro_torch.kernels.sweep_eval"
+                                    ).sweep_eval
+    t_phase = time.perf_counter()
+    env = {dist.ENV_COORDINATOR: f"127.0.0.1:{free_port()}",
+           dist.ENV_NUM_PROCESSES: "1", dist.ENV_PROCESS_ID: "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    gemms = [g for *_, g in entries]
+    launches = 0
+    try:
+        # (a) a world of 1 under NCCL
+        multi = dist.initialize()
+        print(f"31(a) initialize() from REPRO_*: backend "
+              f"{tdist.get_backend()}, world {tdist.get_world_size()}, rank "
+              f"device {dist.rank_device()}, multi-process {multi}")
+        if tdist.get_backend() != "nccl" or multi:
+            raise RuntimeError("31(a): expected a world of 1 under NCCL")
+        for backend in ("vectorized", "pallas"):
+            engine = dist.distributed_engine(chunk_rows=DIST_CHUNK_ROWS)
+            sweep.launches = 0          # the row-sharded path starts
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decisions = plan_workload(gemms, backend=backend, engine=engine)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = sweep.launches          # ... and ends here
+            if backend == "pallas":
+                launches += n
+            got = [tuple(r) for r in verdict_rows(entries, decisions)]
+            plain = plan_workload(gemms, backend=backend, engine=SweepEngine(
+                mesh=None, chunk_rows=DIST_CHUNK_ROWS, device="cuda"))
+            same_plain = got == [tuple(r) for r in verdict_rows(entries,
+                                                                plain)]
+            diffs = [i for i, (a, b) in enumerate(zip(got, golden)) if a != b]
+            info = engine.cache_info()
+            print(f"31(a) distributed_engine(chunk_rows={DIST_CHUNK_ROWS}) "
+                  f"backend={backend}: {len(got)} verdicts, {len(diffs)} "
+                  f"differ from tests/golden/planner_verdicts.csv, equal to "
+                  f"the unsharded engine {same_plain}; {wall!r} s cold; mesh "
+                  f"{engine.mesh.device_type} x {engine.n_shards}; chunks "
+                  f"{info['chunks']}; distributed {info['distributed']}; "
+                  f"sweep_eval launches {n} [{card}]")
+            if (diffs or len(got) != len(golden) or not same_plain
+                    or info["chunks"]["evaluated"] < 2
+                    or (backend == "pallas") != (n > 0)):
+                raise RuntimeError(f"31(a): the row-sharded plan failed "
+                                   f"({backend})")
+        engine = dist.distributed_engine(chunk_rows=DIST_CHUNK_ROWS)
+        sweep.launches = 0
+        t0 = time.perf_counter()
+        result = run_campaign(golden_spec, engine=engine, backend="pallas",
+                              block_points=256, group_by="gemm")
+        wall = time.perf_counter() - t0
+        n = sweep.launches
+        launches += n
+        same = result.csv_text() == golden_front
+        print(f"31(a) golden campaign through the row-sharded engine "
+              f"(pallas): front byte-equal to tests/golden/campaign_front.csv "
+              f"{same}; {wall!r} s, {engine.cache_info()['chunks']['evaluated']}"
+              f" chunks, sweep_eval launches {n} [{card}]")
+        if not same or n == 0:
+            raise RuntimeError("31(a): the row-sharded campaign front differs")
+        psum = psum_on_card(torch, card)            # (c)
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    ranks = gloo_ranks_on_card(card, golden)        # (b)
+    print(f"distributed: phase 31 took {time.perf_counter() - t_phase:.1f} s")
+    return {"world1_launches": launches, "gloo_launches": ranks["launches"],
+            "psum": psum}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--sweep-rank"]:
+        return sweep_rank_worker()
     sys.path.insert(0, os.path.join(HERE, "src"))
     import numpy as np
     from repro_torch.configs import ARCHS, SHAPES, RunConfig
@@ -3295,8 +3613,10 @@ def main() -> int:
     fam_kernels = families(torch, card)     # phases 18-28
     paper_run = paper_phase(torch, card)    # phase 29
     train_phase(torch, card)                # phase 30
+    dist_run = distributed_phase(torch, card, entries, golden, golden_spec,
+                                 golden_front)      # phase 31
 
-    # --- 31. result lines ----------------------------------------------------
+    # --- 32. result lines ----------------------------------------------------
     kernels = [{
         "name": "int8_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_gemm.cu",
@@ -3489,6 +3809,24 @@ def main() -> int:
                 f"launches counted over launch/paper.py's seven artefacts "
                 f"with backend='pallas' (Figs. 9-13 scored on the card, "
                 f"{paper_run['wall_s']!r} s for all seven)"}]
+    kernels += [{
+        "name": "sweep_eval", "route": "cuda", "path": "row-sharded sweep",
+        "source": "src/repro_torch/kernels/csrc/sweep_eval.cu",
+        "replaces": "src/repro/kernels/sweep_eval.py:58",
+        "launches": dist_run["world1_launches"] + dist_run["gloo_launches"],
+        "launches_world1_nccl": dist_run["world1_launches"],
+        "launches_gloo_ranks": dist_run["gloo_launches"],
+        "max_abs_err": 0.0,
+        "ms": sweep_ms, "plain_ms": sweep_plain_ms,
+        "bound_ms": sweep_bound_ms,
+        "bound_by": ("bytes" if sweep_bytes_ms >= sweep_ops_ms
+                     else "operations"),
+        "library_ms": None,
+        "work": f"phase 6's launch on {n_big} rows (times and bound); "
+                f"launches counted over phase 31: the golden plan "
+                f"(pallas) and campaign through distributed_engine("
+                f"chunk_rows={DIST_CHUNK_ROWS}) at a world of 1 under NCCL, "
+                f"plus both gloo ranks' shards of the golden plan"}]
     kernels += fam_kernels
     for entry in kernels:               # JSON has no NaN: not measured
         for key in ("device_ms", "library_device_ms"):

@@ -1,5 +1,4 @@
-"""Batched What/When/Where sweep engine (the planner's fast path), on one
-device.
+"""Batched What/When/Where sweep engine (the planner's fast path).
 
 `planner.decide` answers the paper's three questions one scalar
 cost-model call at a time.  This module flattens a whole workload —
@@ -28,9 +27,25 @@ streamed through the kernel in tiles, with a cross-chunk running
 reduction per group that keeps the first index on ties, so the result is
 bit for bit the whole-batch one; `cache_info()["chunks"]` counts them.
 
-Not ported: the JAX package's row mesh (`shard_map`, multi-host
-`jax.distributed`), its jit registry (`jit_cache_clear`,
-`jit_kernel_count`: nothing here is jitted) and the VMEM-sized block
+Row mesh: `SweepEngine(mesh=...)` takes a 1-D `DeviceMesh` of ranks
+(`launch.mesh.row_mesh`, `launch.distributed.global_row_mesh`).  Every
+rank enumerates the same tiles SPMD; each tile is padded (by repeating
+its first row) to a multiple of the mesh size, each rank scores its
+contiguous row shard on its own device (`device`), and the (11, n/w)
+outputs are all-gathered (`launch.distributed.gather_rows`), stripped of
+the padding and folded by the identical reduction on every rank.  Rows
+are independent, so the result is bit for bit the unsharded engine's.
+The JAX package also pads every tile to a power of two to bound its jit
+retraces; nothing here is traced, so `cache_info()["chunks"]
+["padded_rows"]` counts only the alignment padding (0 without a mesh).
+A mesh holding other ranks adds `cache_info()["distributed"]`: the
+topology and the cumulative per-rank shard balance.  The ranks of a
+mesh must issue the same queries in the same order; a sharded engine
+is not for concurrent threads.  So `default_engine`, which each rank's
+serving and plan service use for its own traffic, is never sharded.
+
+Not ported: the JAX package's jit registry (`jit_cache_clear`,
+`jit_kernel_count`: nothing here is jitted) and its VMEM-sized block
 autotune.
 """
 from __future__ import annotations
@@ -83,6 +98,38 @@ def _cfg_key(cfg: CiMSystemConfig):
     return (p.name, p.Rp, p.Cp, p.Rh, p.Ch, p.capacity_bytes, p.latency_ns,
             p.mac_energy_pj, cfg.cim_level, cfg.resolved_n_prims(),
             cfg.serialize_primitives, cfg.kn_balance_threshold)
+
+
+def _pad_len(n: int, shards: int = 1) -> int:
+    """n rounded up to a multiple of the shard count, so the row axis
+    splits evenly."""
+    return -(-n // shards) * shards
+
+
+def _auto_mesh():
+    """The global row mesh when this process belongs to a group of more
+    than one rank, else None (the unsharded path)."""
+    from ..launch import distributed as dist
+    if dist.distributed_info()["processes"] > 1:
+        return dist.global_row_mesh()
+    return None
+
+
+def _run_sharded(fn, host: np.ndarray, mesh, device) -> np.ndarray:
+    """Score the (F, n) host matrix over `mesh`: pad it to a multiple of
+    the mesh size by repeating row 0, run this rank's row shard (its
+    `Shard(0)` slice from `host_local_to_global`) through `fn` on
+    `device`, all-gather the output rows and drop the padding."""
+    from ..launch import distributed as dist
+    n = host.shape[1]
+    m = _pad_len(n, mesh.size())
+    if m != n:
+        host = np.concatenate([host, np.repeat(host[:, :1], m - n, 1)], 1)
+    shard = dist.host_local_to_global({"rows": host.T}, mesh)["rows"]
+    local = fn(shard.to_local().to(device).T.contiguous())
+    out = dist.gather_rows({f: local[j] for j, f in
+                            enumerate(SWEEP_OUT_FIELDS)}, mesh)
+    return np.stack([out[f][:n] for f in SWEEP_OUT_FIELDS])
 
 
 def _cat_cols(parts: list[dict]) -> dict:
@@ -157,16 +204,21 @@ def _base_fn(rows):
 
 
 class SweepEngine:
-    """Whole-workload batched planner evaluation with an LRU result cache,
-    on one device.
+    """Whole-workload batched planner evaluation with an LRU result cache.
 
     cim_metrics / baseline_metrics return the Metrics the scalar cost
     model produces (within float32 tolerance), evaluating every uncached
     (GEMM, config) pair of a query in one device pass (or one per chunk
     of `chunk_rows` rows).  `device` defaults to "cuda"; a CPU engine
-    passes device="cpu"."""
+    passes device="cpu".
 
-    def __init__(self, cache_size: int = 16384,
+    mesh: "auto" (default) is the global row mesh when this process
+    belongs to a process group of more than one rank, and None (the
+    unsharded path) otherwise; None forces the unsharded path; an
+    explicit 1-D `DeviceMesh` is always honored — a one-rank mesh too,
+    which runs the sharded path for parity testing."""
+
+    def __init__(self, cache_size: int = 16384, mesh="auto",
                  chunk_rows: int | None = None, device="cuda"):
         if chunk_rows is not None and chunk_rows < 1:
             raise ValueError(f"chunk_rows must be >= 1 or None, "
@@ -174,6 +226,7 @@ class SweepEngine:
         self.device = resolve_device(device)
         self.cache_size = cache_size
         self.chunk_rows = chunk_rows
+        self._mesh = mesh
         self._cache: OrderedDict = OrderedDict()
         self._lock = threading.RLock()
         self._local = threading.local()   # per-thread hit/miss counters
@@ -182,6 +235,22 @@ class SweepEngine:
         self._backend_counts: dict = {}
         self._chunks_evaluated = 0
         self._rows_evaluated = 0
+        self._rows_padded = 0
+
+    @property
+    def mesh(self):
+        """The resolved row mesh ("auto" is resolved at first use, not at
+        construction)."""
+        if isinstance(self._mesh, str):
+            if self._mesh != "auto":
+                raise ValueError(f"mesh must be 'auto', None or a "
+                                 f"DeviceMesh, got {self._mesh!r}")
+            self._mesh = _auto_mesh()
+        return self._mesh
+
+    @property
+    def n_shards(self) -> int:
+        return self.mesh.size() if self.mesh is not None else 1
 
     # --- cache plumbing ---------------------------------------------------
     def _get(self, key, bucket: str):
@@ -216,11 +285,13 @@ class SweepEngine:
         """Size + hit/miss totals, the per-backend breakdown (vectorized /
         pallas / baseline keyspaces), `pallas_fallback` (always None: the
         port never falls back from the kernel), the device and kernel
-        mode, and the streaming accounting under "chunks" (tiles and rows
-        evaluated)."""
+        mode, the streaming accounting under "chunks" (tiles evaluated,
+        real and padding rows), and "distributed": None, or on a mesh
+        holding other ranks the topology (`distributed_info()`), the mesh
+        size and the cumulative per-rank row shard balance."""
         from ..kernels.sweep_eval import kernel_status
         with self._lock:
-            return {"size": len(self._cache), "max_size": self.cache_size,
+            info = {"size": len(self._cache), "max_size": self.cache_size,
                     "hits": self.hits, "misses": self.misses,
                     "backends": {b: dict(c) for b, c in
                                  self._backend_counts.items()},
@@ -229,7 +300,18 @@ class SweepEngine:
                     "kernel": kernel_status(self.device)["mode"],
                     "chunks": {"chunk_rows": self.chunk_rows,
                                "evaluated": self._chunks_evaluated,
-                               "rows": self._rows_evaluated}}
+                               "rows": self._rows_evaluated,
+                               "padded_rows": self._rows_padded},
+                    "distributed": None}
+        from ..launch import distributed as dist
+        if dist.is_multihost(self.mesh):
+            c = info["chunks"]
+            info["distributed"] = {
+                **dist.distributed_info(),
+                "mesh_devices": self.mesh.size(),
+                "shard_balance": dist.shard_balance(
+                    c["rows"] + c["padded_rows"], self.mesh)}
+        return info
 
     def cache_clear(self) -> None:
         with self._lock:
@@ -238,23 +320,31 @@ class SweepEngine:
             self._backend_counts = {}
             self._chunks_evaluated = 0
             self._rows_evaluated = 0
+            self._rows_padded = 0
 
     # --- streaming evaluation --------------------------------------------
     def _stream_batches(self, fn, fields, groups, update) -> None:
         """Fold a lazily-enumerated grid through `fn` tile by tile: each
-        tile's columns go to the device as one (len(fields), n) matrix,
-        the (11, n) result comes back as host columns, and
+        tile's columns form one (len(fields), n) matrix, scored on the
+        device (over the row mesh, `_run_sharded`, when there is one), the
+        (11, n) result comes back as host columns, and
         `update(gid, group_offset, out, lo, hi)` folds each segment into
         the caller's running per-group reduction."""
+        mesh = self.mesh
         for cols, segs in _iter_chunks(groups, self.chunk_rows):
             n = len(next(iter(cols.values())))
             host = np.stack([np.asarray(cols[f], np.float32) for f in fields])
-            res = fn(torch.from_numpy(host).to(self.device)).cpu().numpy()
+            if mesh is None:
+                res = fn(torch.from_numpy(host).to(self.device)).cpu().numpy()
+            else:
+                res = _run_sharded(fn, host, mesh, self.device)
             out = {f: res[j] for j, f in enumerate(SWEEP_OUT_FIELDS)}
             out["valid"] = out["valid"] > 0.5
             with self._lock:
                 self._chunks_evaluated += 1
                 self._rows_evaluated += n
+                if mesh is not None:
+                    self._rows_padded += _pad_len(n, mesh.size()) - n
             for gid, off, lo, hi in segs:
                 update(gid, off, out, lo, hi)
 
@@ -383,12 +473,19 @@ _ENGINES_LOCK = threading.Lock()
 
 
 def default_engine(device="cuda") -> SweepEngine:
-    """The process-wide engine for `device`'s type ("cuda" or "cpu")."""
+    """The process-wide engine for `device`'s type ("cuda" or "cpu").
+
+    It is unsharded (mesh None) in a process group too: each rank plans
+    its own traffic with it (a serving rank's plan service plans the
+    buckets its traffic reaches, and re-plans them from background
+    threads), so its queries are not the same on every rank, as a
+    sharded engine's must be.  SPMD callers take the row mesh through
+    `launch.distributed.distributed_engine`."""
     dev = resolve_device(device)
     with _ENGINES_LOCK:
         eng = _ENGINES.get(dev.type)
         if eng is None:
-            eng = _ENGINES[dev.type] = SweepEngine(device=dev)
+            eng = _ENGINES[dev.type] = SweepEngine(mesh=None, device=dev)
         return eng
 
 

@@ -14,6 +14,9 @@
   (Figs. 2, 7 + Table II, 9, 10, 11/12, 13 and Table VI) as CSV and
   derived JSON, the sweeps on the sweep kernel with `--backend pallas`,
   on the card unless `--device cpu`.
+* `python -m repro_torch.launch.report` — renders dry-run cell, serve
+  bench and campaign JSONs (and the sweep engine's telemetry blocks) as
+  markdown tables.
 * `python -m repro_torch.launch.gemm_bench` — times the INT8 GEMM's
   designs at qwen2-7b's projection shapes against `torch.matmul` and,
   with `--baseline DIR`, another checkout's wrapper (needs a card).
@@ -21,4 +24,11 @@
   and flash-decoding kernels at qwen2-7b's shapes against
   `scaled_dot_product_attention` and, with `--baseline DIR`, another
   checkout's kernels (needs a card).
+
+Library modules: `mesh` (`DeviceMesh` construction: the row mesh, the
+production (16, 16) / (2, 16, 16) meshes, the device-less abstract mesh),
+`distributed` (process-group init from the REPRO_* env vars, the
+row-sharded sweep's split and gather), `specs` (meta-device input and
+parameter stand-ins per cell) and `roofline` (the analytic step
+roofline on the H100's data-sheet rates).
 """

@@ -33,10 +33,13 @@ verdict change hot-swaps the decode plan between captured variants.
 --bucket-edges overrides the lattice ("b1,b2,..:l1,l2,.."); --refresh-
 every N re-plans a bucket in the background after every N lookups.
 
-The report is printed as JSON (the JAX package renders it with
-launch/report.py, which the port does not have yet).  The run is on the
-card; --device cpu runs it on the CPU (the one flag the JAX package's
-CLI lacks).  The JAX package's per-host distributed block is not ported.
+The report is printed as JSON (`launch/report.py` renders its engine
+telemetry).  The run is on the card; --device cpu runs it on the CPU
+(the one flag the JAX package's CLI lacks).  In a multi-process group
+(`launch.distributed.initialize`, REPRO_* env vars) the fixed-batch
+report adds a "distributed" block (`distributed_info()`: which rank
+printed it, and the topology) beside the per-rank cache counters, as the
+JAX package's does.
 """
 from __future__ import annotations
 
@@ -52,6 +55,7 @@ from ..serving import (CIM_ROUTE, ContinuousBatchingEngine, DecodeCore,
                        ServeSession, cim_fraction, poisson_arrivals,
                        synthetic_requests)
 from ..serving.core import token_shape
+from . import distributed as dist
 
 
 def _sync(device) -> None:
@@ -214,6 +218,7 @@ def main(argv=None):
     if args.adaptive and args.requests <= 0:
         ap.error("--adaptive needs traffic mode (--requests N)")
 
+    dist.initialize(device=args.device)      # no-op when unconfigured
     cfg = ARCHS[args.arch]
     if args.smoke:
         cfg = reduced(cfg)
@@ -247,6 +252,11 @@ def main(argv=None):
         "kernel_plan": {lab: bool(d.use_cim) for lab, d in plan.items()},
         "planner_cache": sess.plan_cache_telemetry,
     }
+    info = dist.distributed_info()
+    if info["processes"] > 1:
+        # a multi-process run: record which rank printed this report and
+        # the topology next to its cache counters
+        report["distributed"] = info
     if args.quantize:
         # per-label routes + gated-vs-ungated decode throughput: the
         # ungated session keeps the same INT8 weights, so the steady

@@ -494,9 +494,12 @@ def forward(params, tokens, cfg: ModelConfig, rc: RunConfig,
     "nothing" keeps only the period's input and recomputes the rest in
     the backward, "dots" also keeps every matmul's output, as the JAX
     package's `jax.checkpoint` policies do.  The JAX package's sharding
-    constraints are mesh concerns and are not applied; the layer loop is
-    a Python loop over periods (so `scan_unroll` has nothing to
-    unroll)."""
+    constraints (q/k/v under rc.shard_attn / shard_heads, the residual
+    under rc.sp_residual) change no value and are not applied: no model
+    runs over a mesh yet, and the dry-run slice decides whether they
+    become DTensor redistributions of `sharding.rules`' placements.  The
+    layer loop is a Python loop over periods (so `scan_unroll` has
+    nothing to unroll)."""
     slots = period_slots(cfg)
     if image_embeds is None and any(s.mixer == "cross" for s in slots):
         raise ValueError(f"{cfg.name}: a vlm forward needs image_embeds "

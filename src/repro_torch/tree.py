@@ -33,6 +33,19 @@ def map_tree(fn, tree):
     return fn(tree)
 
 
+def map_with_path(fn, tree, path: tuple = ()):
+    """The same nesting with fn(path, leaf) in place of each tensor;
+    `path` is the tuple of names from the root (dict keys as they are,
+    list / tuple indices as str), as `flatten_with_paths` joins them."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_path(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
 def zip_leaves(tree, *others):
     """(leaf, node of each other tree at the leaf's place), in order.  An
     other tree may hold a subtree where `tree` holds a tensor (adafactor's
