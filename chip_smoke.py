@@ -243,7 +243,26 @@ compressed all-reduce).  In order it:
    every golden tile through the sweep kernel on cuda:0 and gathering
    the columns on the host: both bit for bit the golden CSV, shard
    balance n/2 each, identical plans;
-32. prints one JSON line of kernel numbers, the card line, and last
+32. runs the dry run (`dryrun_phase()`): (a) DRY_CELLS through `python -m
+   repro_torch.launch.dryrun` as subprocesses on the host's CPU (the dry
+   run uses no card), all started together within DRY_BUDGET_S: every
+   cell status ok, each printed with its trace seconds, per-rank FLOPs,
+   bytes and collective bytes by type, argument and temp bytes, the
+   bottleneck and roofline fraction (decode cells: the planner's n_gemms
+   and cim_routed_fraction), and all rendered by
+   `launch/report.py:dryrun_table`; (b) `kernels/autotune.py`'s
+   `autotune_report()` at BLOCK_SHAPES (the JAX package's exemplars and
+   block-test shapes and 4096^3), each shape run once with int8 and once
+   with e4m3 weights against the plain version within TOL·max|ref|, the
+   design launched the report's (`launches_by_design` moves by exactly
+   the designs it names), then timed with int8 weights as phase 3 times
+   its shapes; (c) the dry run's per-rank accounting (`dryrun.trace_step`
+   at a mesh of one rank of a fake group) of phase 30 (b)'s cell against
+   FlopCounterMode over one real step of it on the card: the FLOPs equal,
+   the dry run's argument + temp bytes beside the step's
+   `torch.cuda.max_memory_allocated`, and the `Roofline` bound of the dry
+   run's counts beside the measured ms/step;
+33. prints one JSON line of kernel numbers, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Phase 9 also holds the graphs: the serve's steps replay CUDA graphs
@@ -258,13 +277,14 @@ Each kernel's launch count in that line comes from its own main path
 (for sweep_eval, which has four entries: the default-grid campaign,
 the adaptive engine run, the paper's artefacts and the row-sharded
 sweep of phase 31(a) and (b); for int8_gemm, which
-has twenty entries, each with its design and weight format: the gated
+has twenty-one entries, each with its design and weight format: the gated
 INT8 serve, the INT8 prefill forward, the 197 calls of one decode step
 through `ops.int8_matmul(dataflow="ws")`, the same three with FP8
 weights, the gated INT4 serve, the continuous engine's all-at-once run,
 for qwen2-moe-a2.7b, mamba2-780m and musicgen-large each the serve, the
 prefill forward and the engine, for the vlm the serve and the prefill
-forward, and reduced jamba's serve and engine; the qwen2-7b,
+forward, reduced jamba's serve and engine, and phase 32 (b)'s block
+report; the qwen2-7b,
 qwen2-moe-a2.7b, musicgen-large and vlm prefill forwards for
 flash_attention; one call of the public wrapper for decode_attention),
 counted from 0 just before that path ran.
@@ -2325,6 +2345,285 @@ def distributed_phase(torch, card: str, entries, golden, golden_spec,
             "psum": psum}
 
 
+# --- the dry run and the GEMM's block report (phase 32) ------------------------
+
+# (a)'s cells (arch, shape, mesh), traced in parallel subprocesses of the
+# dry-run CLI on the card machine's CPU (the dry run uses no card)
+DRY_CELLS = (("mamba2-780m", "decode_32k", "single"),
+             ("qwen2-7b", "train_4k", "single"),
+             ("qwen2-7b", "prefill_32k", "single"),
+             ("qwen2-7b", "decode_32k", "single"),
+             ("qwen2-7b", "train_4k", "multi"),
+             ("qwen2-moe-a2.7b", "decode_32k", "single"),
+             ("musicgen-large", "decode_32k", "single"),
+             ("llama-3.2-vision-90b", "decode_32k", "single"),
+             ("jamba-1.5-large-398b", "decode_32k", "single"))
+DRY_BUDGET_S = 300           # (a)'s wall budget, all cells together
+DRY_OUT = os.path.join(HERE, "build", "chip_smoke", "dryrun")   # gitignored
+# (b): the JAX package's autotune_report shapes, its block-test shapes
+# (tests/test_decode_hotpath.py:305-308) and a square prefill GEMM
+BLOCK_SHAPES = ((8, 512, 256), (8, 256, 2048), (1024, 1024, 1024),
+                (4096, 128, 512), (1, 512, 256), (64, 1024, 1024),
+                (256, 128, 512), (4096, 96, 768), (7, 130, 96),
+                (4096, 4096, 4096))
+# (c): phase 30 (b)'s cell (qwen2-7b's width at 8 layers, AdamW, batch 8
+# x 1024 in 2 microbatches)
+DRY_CARD_CASE = TRAIN_CASES[1]
+DRY_CARD_TIMED = 3
+
+
+def dry_cells(card: str) -> list[dict]:
+    """32 (a): every DRY_CELLS cell through `python -m
+    repro_torch.launch.dryrun`, all started together, within
+    DRY_BUDGET_S; each must report status ok."""
+    from repro_torch.launch.report import dryrun_table
+    os.makedirs(DRY_OUT, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for arch, shape, mesh in DRY_CELLS:
+            log = open(os.path.join(DRY_OUT, f"{arch}.{shape}.{mesh}.log"),
+                       "w")
+            procs.append(((arch, shape, mesh), log, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--mesh", mesh, "--force", "--out",
+                 DRY_OUT], env=env, cwd=HERE, stdout=log,
+                stderr=subprocess.STDOUT)))
+        for _, log, p in procs:
+            p.wait(timeout=max(1.0, DRY_BUDGET_S
+                               - (time.perf_counter() - t0)))
+            log.close()
+    finally:
+        for _, log, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    wall = time.perf_counter() - t0
+    cells = []
+    for (arch, shape, mesh), _, p in procs:
+        path = os.path.join(DRY_OUT, f"{arch}.{shape}.{mesh}.json")
+        if p.returncode != 0 or not os.path.exists(path):
+            raise RuntimeError(f"32(a): the dry run of {arch} x {shape} x "
+                               f"{mesh} exited {p.returncode}")
+        with open(path) as f:
+            c = json.load(f)
+        cells.append(c)
+        if c["status"] != "ok":
+            raise RuntimeError(f"32(a): {arch} x {shape} x {mesh}: "
+                               f"{c.get('error')}")
+        mem, coll, r = (c["memory_analysis"], c["collectives"],
+                        c["roofline"])
+        by_type = {k: (v["count"], v["bytes"]) for k, v in
+                   coll["by_type_at_last_unroll"].items()}
+        line = (f"32(a) {arch} x {shape} x {mesh} ({c['chips']} ranks, "
+                f"{c['run_config']}): trace {c['trace_s']!r} s; per rank "
+                f"{c['cost_analysis']['flops']!r} FLOPs, "
+                f"{c['cost_analysis']['bytes_accessed']!r} bytes accessed, "
+                f"collectives {coll['collective_bytes']!r} B {by_type}; "
+                f"arguments {mem['argument_size_in_bytes']} B, temp "
+                f"{mem['temp_size_in_bytes']} B; bottleneck "
+                f"{r['bottleneck']}, roofline fraction "
+                f"{r['roofline_fraction']!r}; redistributions "
+                f"{c['redistributions']}")
+        if "planner" in c:
+            pl = c["planner"]
+            line += (f"; planner n_gemms {pl['summary']['n_gemms']}, "
+                     f"cim_routed_fraction {pl['cim_routed_fraction']!r}")
+        print(line)
+    print(dryrun_table(cells))
+    print(f"32(a) {len(cells)} dry-run cells in {wall:.1f} s (budget "
+          f"{DRY_BUDGET_S} s, all started together on the host's CPU; no "
+          f"cell cut)")
+    return cells
+
+
+def block_report(torch, card: str) -> dict:
+    """32 (b): `autotune_report()` at BLOCK_SHAPES, each shape run once
+    with int8 and once with e4m3 weights against the plain version, the
+    designs launched equal to the report's; then each int8 shape timed as
+    phase 3 times its shapes.  Returns the kernel line's entry."""
+    from repro_torch.kernels.autotune import autotune_report
+    gemm_mod = importlib.import_module("repro_torch.kernels.int8_gemm")
+    int8_gemm, int8_gemm_ref = gemm_mod.int8_gemm, gemm_mod.int8_gemm_ref
+    rows = autotune_report(BLOCK_SHAPES)
+    reset_counts(int8_gemm)                 # the block report's path
+    errs, want_designs = [], {d: 0 for d in int8_gemm.launches_by_design}
+    for r in rows:
+        m, n, k = r["shape"]
+        for weights in ("int8", "fp8"):
+            gen = torch.Generator(device="cuda").manual_seed(m + 31 * n + k)
+            x = torch.randn((m, k), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            q, s = gemm_weight(torch, weights, k, n, gen)
+            before = dict(int8_gemm.launches_by_design)
+            got = int8_gemm(x, q, s)
+            ran = {d: c - before[d] for d, c in
+                   int8_gemm.launches_by_design.items() if c != before[d]}
+            want = int8_gemm_ref(x, q, s)
+            torch.cuda.synchronize()
+            ref_max = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            errs.append(err)
+            want_designs[r["design"]] += 1
+            ok = (ran == {r["design"]: 1} and err <= TOL * ref_max
+                  and bool(torch.isfinite(got).all().item()))
+            print(f"32(b) ({m}, {n}, {k}) {weights}: design {r['design']} "
+                  f"blocks {r['blocks']} splits {r['splits']} smem "
+                  f"{r['smem_kib']!r} KiB grid {r['grid_blocks']} blocks; "
+                  f"launched {ran}; max|Δ| {err!r} (≤ {TOL}·{ref_max!r}) "
+                  f"[{card}]")
+            if not ok:
+                raise RuntimeError(f"32(b): int8_gemm at ({m}, {n}, {k}) "
+                                   f"{weights} failed the block report")
+    launches = int8_gemm.launches
+    by_design = dict(int8_gemm.launches_by_design)
+    by_format = dict(int8_gemm.launches_by_format)
+    if by_design != want_designs:
+        raise RuntimeError(f"32(b): launches by design {by_design} != the "
+                           f"report's {want_designs}")
+    timed = [check_kernel(torch, int8_gemm, int8_gemm_ref, m, k, n,
+                          torch.bfloat16) for m, n, k in
+             (r["shape"] for r in rows)]
+    total = {key: sum(t[key] for t in timed) for key in (
+        "ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms", "library_ms",
+        "device_ms", "library_device_ms")}
+    print(f"32(b) {len(rows)} shapes x 2 weight formats: launches "
+          f"{launches}, by design {by_design}, by format {by_format} "
+          f"(before the timing below); int8 summed over "
+          f"the shapes: kernel {total['ms']!r} ms (device "
+          f"{total['device_ms']!r}), plain {total['plain_ms']!r}, bound "
+          f"{total['bound_ms']!r}, torch.matmul {total['library_ms']!r} "
+          f"[{card}]")
+    return {
+        "name": "int8_gemm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/int8_gemm.cu",
+        "replaces": "src/repro/kernels/int8_gemm.py:33",
+        "launches": launches,
+        "max_abs_err": max(errs + [t["max_abs_err"] for t in timed]),
+        "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "bound_ms": total["bound_ms"],
+        "bound_by": ("bytes" if total["bytes_ms"] >= total["ops_ms"]
+                     else "operations"),
+        "library_ms": total["library_ms"],
+        "device_ms": total["device_ms"],
+        "library_device_ms": total["library_device_ms"],
+        "path": "block report",
+        "design": "+".join(d for d, c in want_designs.items() if c),
+        "weights": "int8 and float8_e4m3fn",
+        "work": f"one call at each of the {len(rows)} shapes of "
+                f"autotune_report(BLOCK_SHAPES) with each weight format "
+                f"(launches); times summed over the shapes with int8 "
+                f"weights"}
+
+
+def dry_vs_card(torch, card: str) -> dict:
+    """32 (c): the dry run's per-rank accounting (`dryrun.trace_step`, at a
+    mesh of one rank of a fake group) against one real step of phase 30
+    (b)'s cell on the card counted by FlopCounterMode: equal FLOPs; the
+    Roofline bound from the dry run's counts beside the measured ms/step."""
+    import gc
+
+    import torch.distributed as tdist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ARCHS, RunConfig, ShapeConfig
+    from repro_torch.data import DataConfig, batch_at_step
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import small_mesh
+    from repro_torch.models import init
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.loop import make_train_step
+    _, arch, layers, optimizer, batch, seq, mb = DRY_CARD_CASE
+    cfg = dataclasses.replace(ARCHS[arch], n_layers=layers)
+    shape = ShapeConfig(f"train_{seq}", seq, batch, "train")
+    rc = RunConfig(optimizer=optimizer, learning_rate=TRAIN_LR,
+                   warmup_steps=0, microbatches=mb, remat=True,
+                   remat_policy="nothing", attn_impl="flash_jnp",
+                   attn_chunk=1024)
+    dryrun.fake_group()
+    try:
+        dry = dryrun.trace_step(cfg, shape, small_mesh(1, 1), rc)
+    finally:
+        tdist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                  device="cuda")
+    state = make_optimizer(optimizer)[0](params)
+    dc = DataConfig(seed=0, vocab=cfg.vocab, seq_len=seq, global_batch=batch)
+    batches = [batch_at_step(dc, i, device="cuda")
+               for i in range(DRY_CARD_TIMED + 1)]
+    step_fn = make_train_step(cfg, rc, total_steps=100)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        params, state, m = step_fn(params, state, batches[0], 0)
+    torch.cuda.synchronize()
+    real_flops = fc.get_total_flops()
+    card_peak = torch.cuda.max_memory_allocated()
+    ms = []
+    for i in range(1, DRY_CARD_TIMED + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        params, state, m = step_fn(params, state, batches[i], i)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    step_ms = sum(ms) / len(ms)
+    roof = roofline.Roofline(
+        arch, shape.name, "1 rank", 1, hlo_flops=dry["flops"],
+        hlo_bytes=dry["bytes"], collective_bytes=0.0,
+        model_flops_total=roofline.model_flops(cfg, shape),
+        hbm_bytes=roofline.analytic_hbm_bytes(
+            cfg, shape, 1, optimizer=optimizer, microbatches=mb, tp=1))
+    print(f"32(c) {arch} at {layers} layers, {optimizer}, batch {batch} x "
+          f"{seq} in {mb} microbatches: dry run (one rank, trace "
+          f"{dry['trace_s']!r} s) {dry['flops']!r} FLOPs, "
+          f"{dry['bytes']!r} bytes accessed, temp "
+          f"{dry['memory']['temp_size_in_bytes']} B; FlopCounterMode over "
+          f"one real step on the card {real_flops!r} FLOPs; equal "
+          f"{dry['flops'] == real_flops}")
+    mem = dry["memory"]
+    dry_peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    print(f"32(c) memory: dry run argument {mem['argument_size_in_bytes']} "
+          f"B + temp {mem['temp_size_in_bytes']} B = {dry_peak} B; the "
+          f"card's step: held {held} B before it (parameters, optimizer "
+          f"state, {len(batches)} batches), max_memory_allocated "
+          f"{card_peak} B during it, {card_peak - held} B above what it "
+          f"held; dry / card peak {dry_peak / card_peak:.3f}")
+    print(f"32(c) Roofline of the dry run's counts (launch/roofline.py): "
+          f"compute {roof.compute_s!r} s, memory {roof.memory_s!r} s "
+          f"(analytic; counted bytes give {roof.memory_s_xla!r} s), "
+          f"bottleneck {roof.bottleneck}, bound {roof.step_time_s * 1e3!r} "
+          f"ms/step against {step_ms!r} ms/step measured (CUDA events, "
+          f"steps {ms!r}) = {roof.step_time_s * 1e3 / step_ms:.1%} of the "
+          f"bound [{card}]")
+    del params, state, batches, step_fn, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    if dry["flops"] != real_flops or real_flops <= 0:
+        raise RuntimeError(f"32(c): the dry run counts {dry['flops']} FLOPs,"
+                           f" the card's step {real_flops}")
+    return {"dry_flops": dry["flops"], "step_ms": step_ms,
+            "bound_ms": roof.step_time_s * 1e3, "dry_peak_bytes": dry_peak,
+            "card_peak_bytes": card_peak}
+
+
+def dryrun_phase(torch, card: str) -> dict:
+    """Phase 32: the dry run's cells, the block report on the card, and
+    the dry run's count against a real step (see the module docstring)."""
+    t0 = time.perf_counter()
+    cells = dry_cells(card)
+    block = block_report(torch, card)
+    versus = dry_vs_card(torch, card)
+    print(f"dryrun: phase 32 took {time.perf_counter() - t0:.1f} s")
+    return {"cells": cells, "block": block, "versus": versus}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3615,8 +3914,9 @@ def main() -> int:
     train_phase(torch, card)                # phase 30
     dist_run = distributed_phase(torch, card, entries, golden, golden_spec,
                                  golden_front)      # phase 31
+    dry_run = dryrun_phase(torch, card)             # phase 32
 
-    # --- 32. result lines ----------------------------------------------------
+    # --- 33. result lines ----------------------------------------------------
     kernels = [{
         "name": "int8_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_gemm.cu",
@@ -3828,6 +4128,7 @@ def main() -> int:
                 f"chunk_rows={DIST_CHUNK_ROWS}) at a world of 1 under NCCL, "
                 f"plus both gloo ranks' shards of the golden plan"}]
     kernels += fam_kernels
+    kernels.append(dry_run["block"])
     for entry in kernels:               # JSON has no NaN: not measured
         for key in ("device_ms", "library_device_ms"):
             if key in entry and not math.isfinite(entry[key]):

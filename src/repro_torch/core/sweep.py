@@ -489,6 +489,17 @@ def default_engine(device="cuda") -> SweepEngine:
         return eng
 
 
+def cache_info(device="cuda") -> dict:
+    """`cache_info()` of the default engine of `device`'s type (the JAX
+    package's module-level call, on its one default engine)."""
+    return default_engine(device).cache_info()
+
+
+def cache_clear(device="cuda") -> None:
+    """Empty the default engine's result cache and zero its counters."""
+    default_engine(device).cache_clear()
+
+
 def measured_cache_delta(fn, engine: SweepEngine | None = None):
     """Run `fn()` (a plan build against `engine`, by default the default
     CUDA engine) and return (result, telemetry): the engine's hit/miss

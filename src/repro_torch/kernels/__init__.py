@@ -11,6 +11,9 @@
 * `decode_attention` — flash-decoding of one query against a KV cache
   (replaces `repro/kernels/decode_attention.py:_kernel`).
 
+`autotune` reports the blocks, shared memory and grid of the GEMM kernel
+`plan_gemm` picks for a shape (`autotune_report`).
+
 `ops` holds the public wrappers in the JAX package's (b, s, heads, d)
 layouts.  `build.py` compiles each CUDA source with nvcc at first use on a
 machine with a card; importing this package compiles nothing.  As

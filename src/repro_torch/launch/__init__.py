@@ -14,6 +14,11 @@
   (Figs. 2, 7 + Table II, 9, 10, 11/12, 13 and Table VI) as CSV and
   derived JSON, the sweeps on the sweep kernel with `--backend pallas`,
   on the card unless `--device cpu`.
+* `python -m repro_torch.launch.dryrun` — the multi-pod dry run: one
+  (arch x shape x mesh) cell, or `--all`, traced on "meta" DTensors over
+  a fake process group of 512 ranks (the 16x16 and 2x16x16 production
+  meshes), one JSON per cell with per-rank memory, FLOPs, bytes,
+  collectives, roofline and (decode) planner telemetry; no card needed.
 * `python -m repro_torch.launch.report` — renders dry-run cell, serve
   bench and campaign JSONs (and the sweep engine's telemetry blocks) as
   markdown tables.
@@ -29,6 +34,7 @@ Library modules: `mesh` (`DeviceMesh` construction: the row mesh, the
 production (16, 16) / (2, 16, 16) meshes, the device-less abstract mesh),
 `distributed` (process-group init from the REPRO_* env vars, the
 row-sharded sweep's split and gather), `specs` (meta-device input and
-parameter stand-ins per cell) and `roofline` (the analytic step
-roofline on the H100's data-sheet rates).
+parameter stand-ins per cell), `roofline` (the analytic step roofline
+on the H100's data-sheet rates) and `trace_analysis` (a traced step's
+per-rank collectives, op census, FLOPs, bytes and peak memory).
 """

@@ -16,13 +16,21 @@ import functools
 
 import torch
 
+from ..sharding.constraints import einsum, is_dtensor, on_local_shards
+
 NEG_INF = -1e30
 
 
 def _gqa_expand(k, n_heads: int):
-    """(b, s, kv, d) -> (b, s, H, d) by repeating kv heads."""
-    kv = k.shape[2]
-    return k if kv == n_heads else k.repeat_interleave(n_heads // kv, dim=2)
+    """(b, s, kv, d) -> (b, s, H, d) by repeating kv heads (each kv head
+    n_heads // kv times in a row, as `repeat_interleave` does; written as
+    an expand and a reshape, which DTensor propagates over a sharded
+    sequence dim where its `repeat_interleave` does not)."""
+    b, s, kv, d = k.shape
+    if kv == n_heads:
+        return k
+    return k[:, :, :, None, :].expand(b, s, kv, n_heads // kv, d).reshape(
+        b, s, n_heads, d)
 
 
 @functools.lru_cache(maxsize=None)
@@ -45,8 +53,7 @@ def naive_causal(q, k, v, positions_q=None, positions_k=None,
     k = _gqa_expand(k, nh)
     v = _gqa_expand(v, nh)
     sk = k.shape[1]
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
-                          k.float()) * _scale(d)
+    logits = einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * _scale(d)
     pos_q = (positions_q if positions_q is not None
              else torch.arange(sq, device=q.device)[None, :] + (sk - sq))
     pos_k = (positions_k if positions_k is not None
@@ -56,7 +63,7 @@ def naive_causal(q, k, v, positions_q=None, positions_k=None,
         mask &= pos_q[:, None, :, None] - pos_k[:, None, None, :] < window
     logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    out = einsum("bhqk,bkhd->bqhd", probs, v.float())
     return out.to(q.dtype)
 
 
@@ -74,15 +81,17 @@ def flash_jnp(q, k, v, chunk: int = 1024, window: int = 0):
     scale = _scale(d)
     pos_q = torch.arange(sq, device=q.device) + (sk - sq)
     qf = q.float()
-    m = torch.full((b, nh, sq), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((b, nh, sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, nh, sq, d), dtype=torch.float32, device=q.device)
+    # the running state, allocated like q (so a DTensor q gives DTensor
+    # state of its placements) in the contiguous layout of torch.zeros
+    f32 = dict(dtype=torch.float32, memory_format=torch.contiguous_format)
+    m = torch.full_like(q[..., 0].transpose(1, 2), NEG_INF, **f32)
+    l = torch.zeros_like(q[..., 0].transpose(1, 2), **f32)
+    acc = torch.zeros_like(q.transpose(1, 2), **f32)
     for j in range(n_chunks):
         kj = k[:, j * chunk:(j + 1) * chunk]
         vj = v[:, j * chunk:(j + 1) * chunk]
         pos_k = j * chunk + torch.arange(chunk, device=q.device)
-        s = torch.einsum("bqhd,bkhd->bhqk", qf, kj.float()) * scale
+        s = einsum("bqhd,bkhd->bhqk", qf, kj.float()) * scale
         mask = pos_q[None, None, :, None] >= pos_k[None, None, None, :]
         if window:
             mask &= (pos_q[None, None, :, None]
@@ -92,7 +101,7 @@ def flash_jnp(q, k, v, chunk: int = 1024, window: int = 0):
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
+        acc = acc * corr[..., None] + einsum(
             "bhqk,bkhd->bhqd", p.to(vj.dtype).float(), vj.float())
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
@@ -134,7 +143,16 @@ def attend(q, k, v, impl: str = "flash_jnp", chunk: int = 1024,
     package, every impl goes naive when sk <= chunk or sk is not a multiple
     of chunk.  The kernel is forward only: "pallas" raises a RuntimeError
     while autograd records and an input requires grad, as the JAX
-    package's Pallas kernel cannot be differentiated."""
+    package's Pallas kernel cannot be differentiated.
+
+    On DTensors (the dry run), attention runs on each rank's shards of
+    batch rows and heads (`sharding.constraints.on_local_shards`): it is
+    independent per (row, head), as GSPMD partitions it."""
+    if is_dtensor(q):
+        return on_local_shards(
+            functools.partial(attend, impl=impl, chunk=chunk, window=window,
+                              block_causal=block_causal, q_chunk=q_chunk),
+            q, _gqa_expand(k, q.shape[2]), _gqa_expand(v, q.shape[2]))
     sk = k.shape[1]
     if impl == "naive" or sk % max(chunk, 1) != 0 or sk <= chunk:
         return naive_causal(q, k, v, window=window)
@@ -164,15 +182,15 @@ def decode_attend(q, k_cache, v_cache, cache_len, window: int = 0,
     if grouped:
         rep = nh // kv
         qg = q.reshape(b, 1, kv, rep, d).float()
-        s = torch.einsum("bqgrd,bsgd->bgrqs", qg, k_cache.float()) * scale
+        s = einsum("bqgrd,bsgd->bgrqs", qg, k_cache.float()) * scale
         s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
         p = torch.softmax(s, dim=-1)
-        out = torch.einsum("bgrqs,bsgd->bqgrd", p, v_cache.float())
+        out = einsum("bgrqs,bsgd->bqgrd", p, v_cache.float())
         return out.reshape(b, 1, nh, d).to(q.dtype)
     k = _gqa_expand(k_cache, nh)
     v = _gqa_expand(v_cache, nh)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    out = einsum("bhqk,bkhd->bqhd", p, v.float())
     return out.to(q.dtype)

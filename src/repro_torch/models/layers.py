@@ -24,6 +24,8 @@ import torch.nn.functional as F
 from ..quant.int8 import dequant_contract, planned_linear
 from ..quant.lowbit import (dequant_contract_fp8, dequant_contract_int4,
                             planned_linear_fp8, planned_linear_int4)
+from ..sharding.constraints import einsum, split_heads
+from ..tree import leaves
 
 
 def dtype_of(name: str):
@@ -112,7 +114,19 @@ def linear(w, x, label: str, plan=None, spec: str | None = None):
     _record_route(label, FLOAT_ROUTE)
     if w.dtype != x.dtype:
         w = w.to(x.dtype)
-    return torch.einsum(spec, x, w) if spec else x @ w
+    return einsum(spec, x, w) if spec else x @ w
+
+
+# --- tree size helpers ------------------------------------------------------
+
+def count_params(tree) -> int:
+    """Elements over every tensor of a (params) tree."""
+    return sum(t.numel() for t in leaves(tree))
+
+
+def param_bytes(tree) -> int:
+    """Bytes over every tensor of a (params) tree."""
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
 
 
 # --- initializers -----------------------------------------------------------
@@ -168,16 +182,17 @@ def swiglu(params, x, plan=None, label_prefix: str = "mlp"):
 
 
 def qkv_proj(params, x, n_heads: int, n_kv: int, d_head: int, plan=None):
-    b, s, _ = x.shape
+    """q, k, v as (..., heads, d_head) (`sharding.constraints.split_heads`:
+    a plain tensor is only reshaped)."""
     q, k, v = (linear(params[w], x, lab, plan)
                for w, lab in (("wq", "Wq"), ("wk", "Wk"), ("wv", "Wv")))
     if "bq" in params:
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    return (q.reshape(b, s, n_heads, d_head),
-            k.reshape(b, s, n_kv, d_head),
-            v.reshape(b, s, n_kv, d_head))
+    return (split_heads(q, n_heads, d_head, "q"),
+            split_heads(k, n_kv, d_head, "kv"),
+            split_heads(v, n_kv, d_head, "kv"))
 
 
 def attn_out_proj(params, o, plan=None, label: str = "Wo"):

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..sharding.constraints import cumsum, einsum
 from .layers import dense_init, linear
 
 
@@ -32,7 +33,7 @@ def _einsum(spec: str, *ops):
     """torch.einsum on operands promoted to one dtype (jnp.einsum's
     promotion)."""
     dt = functools.reduce(torch.promote_types, (o.dtype for o in ops))
-    return torch.einsum(spec, *(o.to(dt) for o in ops))
+    return einsum(spec, *(o.to(dt) for o in ops))
 
 
 def _softplus(x):
@@ -45,7 +46,7 @@ def segsum(x):
     """Stable 'segment sum' producing the lower-triangular decay matrix:
     out[i, j] = sum_{k=j+1..i} x[k] for i >= j, -inf otherwise."""
     l = x.shape[-1]
-    cs = torch.cumsum(x, dim=-1)
+    cs = cumsum(x, -1)
     out = cs[..., :, None] - cs[..., None, :]
     mask = torch.tril(torch.ones((l, l), dtype=torch.bool, device=x.device))
     return torch.where(mask, out, -torch.inf)
@@ -75,7 +76,7 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, init_state=None):
     Bh = torch.repeat_interleave(Bc, rep, dim=3)  # (b, nc, cl, h, n)
     Ch = torch.repeat_interleave(Cc, rep, dim=3)
 
-    a_cum = torch.cumsum(ac, dim=2)               # (b, nc, cl, h)
+    a_cum = cumsum(ac, 2)                         # (b, nc, cl, h)
     # --- intra-chunk (dual quadratic form) ---
     L = torch.exp(segsum(ac.permute(0, 1, 3, 2)))     # (b, nc, h, cl, cl)
     scores = _einsum("bcihn,bcjhn->bchij", Ch, Bh)

@@ -53,11 +53,17 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
 from ..configs.base import ModelConfig, RunConfig
+from ..sharding.constraints import (constrain_qkv, constrain_residual,
+                                    einsum, gather_fsdp, grad_placed,
+                                    index_copy_, logsumexp, merge_heads,
+                                    pick_last, reduce_partial,
+                                    replicate_over_model, split_heads)
 from .attention import _gqa_expand, attend, decode_attend
 from .layers import (apply_rope, attn_out_proj, dense_init, dtype_of,
                      embed_init, linear, qkv_proj, rmsnorm, swiglu)
@@ -396,19 +402,21 @@ def _embed(params, tokens, cfg: ModelConfig):
     `jnp.sum` over the gathers gives those bits on XLA (it accumulates a
     bf16 reduction in f32)."""
     dtype = dtype_of(cfg.compute_dtype)
+    embed = gather_fsdp(params["embed"])
     if cfg.family != "audio":
-        return params["embed"][tokens].to(dtype)
-    tables = params["embed"].unbind(0)
-    x = tables[0][tokens[..., 0]].float()
+        return reduce_partial(F.embedding(tokens, embed)).to(dtype)
+    tables = embed.unbind(0)
+    x = reduce_partial(F.embedding(tokens[..., 0], tables[0])).float()
     for i in range(1, len(tables)):
-        x = x + tables[i][tokens[..., i]].float()
+        x = x + reduce_partial(F.embedding(tokens[..., i],
+                                           tables[i])).float()
     return x.to(dtype)
 
 
-def _cross_q_proj(sp, h, b, l, nh, dh, plan=None):
+def _cross_q_proj(sp, h, nh, dh, plan=None):
     """Cross-attention query projection ("xattn-Q"), shared by the
     full-sequence forward and the decode step."""
-    return linear(sp["attn"]["wq"], h, "xattn-Q", plan).reshape(b, l, nh, dh)
+    return split_heads(linear(sp["attn"]["wq"], h, "xattn-Q", plan), nh, dh)
 
 
 def _lm_logits(params, x, cfg: ModelConfig, plan=None):
@@ -417,24 +425,23 @@ def _lm_logits(params, x, cfg: ModelConfig, plan=None):
     kernel, which runs 2-D weights only); tied embeddings reuse the float
     embedding."""
     if cfg.family == "audio":
-        return linear(params["lm_head"], x, "lm_head", plan,
+        return linear(gather_fsdp(params["lm_head"]), x, "lm_head", plan,
                       spec="bld,ndv->blnv")
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return linear(head, x, "lm_head", plan)
+    return linear(gather_fsdp(head), x, "lm_head", plan)
 
 
 def _cross_mix(sp, h, image_kv, cfg: ModelConfig, plan=None):
     """A cross slot's mixer over the full sequence: unmasked f32 softmax
     attention of the queries onto the image K/V, then "xattn-out"."""
-    b, l, _ = h.shape
     nh, dh = cfg.n_heads, cfg.head_dim()
-    q = _cross_q_proj(sp, h, b, l, nh, dh, plan)
+    q = _cross_q_proj(sp, h, nh, dh, plan)
     kimg, vimg = (_gqa_expand(t, nh).float() for t in image_kv)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kimg) / math.sqrt(dh)
+    s = einsum("bqhd,bkhd->bhqk", q.float(), kimg) / math.sqrt(dh)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", p, vimg)
-    return attn_out_proj(sp["attn"], o.to(h.dtype).reshape(b, l, nh * dh),
-                         plan, label="xattn-out")
+    o = einsum("bhqk,bkhd->bqhd", p, vimg)
+    return attn_out_proj(sp["attn"], merge_heads(o.to(h.dtype)), plan,
+                         label="xattn-out")
 
 
 def _apply_ffn(slot: Slot, sp, x, cfg: ModelConfig, plan=None):
@@ -493,33 +500,33 @@ def forward(params, tokens, cfg: ModelConfig, rc: RunConfig,
     under `torch.utils.checkpoint.checkpoint` (non-reentrant): policy
     "nothing" keeps only the period's input and recomputes the rest in
     the backward, "dots" also keeps every matmul's output, as the JAX
-    package's `jax.checkpoint` policies do.  The JAX package's sharding
-    constraints (q/k/v under rc.shard_attn / shard_heads, the residual
-    under rc.sp_residual) change no value and are not applied: no model
-    runs over a mesh yet, and the dry-run slice decides whether they
-    become DTensor redistributions of `sharding.rules`' placements.  The
+    package's `jax.checkpoint` policies do.  Where the JAX package pins
+    q/k/v (rc.shard_attn / shard_heads) and the residual
+    (rc.sp_residual) with sharding constraints, and where GSPMD would
+    gather FSDP weights or pad uneven heads, the port calls the
+    redistribution points of `sharding.constraints`: they act on
+    DTensors (the dry run) and return plain tensors as they came.  The
     layer loop is a Python loop over periods (so `scan_unroll` has
     nothing to unroll)."""
     slots = period_slots(cfg)
     if image_embeds is None and any(s.mixer == "cross" for s in slots):
         raise ValueError(f"{cfg.name}: a vlm forward needs image_embeds "
                          f"(b, n_image_tokens, d_model)")
-    b, l = tokens.shape[:2]
     x = _embed(params, tokens, cfg)
     nh, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
-    pos = torch.arange(l, device=x.device)[None, :]
+    pos = torch.arange(tokens.shape[1], device=x.device)[None, :]
     L = n_periods(cfg)
     layers = [_per_period(slot_params, L) for slot_params in params["slots"]]
 
     def period(i, x, aux):
         for slot, per in zip(slots, layers):
-            sp = per[i]
+            sp = gather_fsdp(per[i])
             if slot.mixer == "cross":
                 # the image K/V first, then the mixer: the JAX package's
                 # order of the route trace
-                limg = image_embeds.shape[1]
-                image_kv = [linear(sp["attn"][w], image_embeds, "xattn-KV",
-                                   plan).reshape(b, limg, kvh, dh)
+                image_kv = [split_heads(linear(sp["attn"][w], image_embeds,
+                                               "xattn-KV", plan), kvh, dh,
+                                        "kv")
                             for w in ("wk", "wv")]
             h = rmsnorm(sp["norm1"], x, cfg.rmsnorm_eps)
             if slot.mixer == "cross":
@@ -530,12 +537,15 @@ def forward(params, tokens, cfg: ModelConfig, rc: RunConfig,
                 q, k, v = qkv_proj(sp["attn"], h, nh, kvh, dh, plan)
                 q = apply_rope(q, pos, cfg.rope_theta)
                 k = apply_rope(k, pos, cfg.rope_theta)
+                q, k, v = constrain_qkv(q, k, v, rc)
                 o = attend(q, k, v, impl=rc.attn_impl, chunk=rc.attn_chunk,
                            window=cfg.sliding_window,
                            block_causal=rc.block_causal,
                            q_chunk=rc.attn_q_chunk)
-                y = attn_out_proj(sp["attn"], o.reshape(b, l, nh * dh), plan)
-            x, a = _apply_ffn(slot, sp, x + y, cfg, plan)
+                y = attn_out_proj(sp["attn"], merge_heads(o), plan)
+            x, a = _apply_ffn(slot, sp, constrain_residual(x + y, rc), cfg,
+                              plan)
+            x = constrain_residual(x, rc)
             aux = aux + a
         return x, aux
 
@@ -549,7 +559,7 @@ def forward(params, tokens, cfg: ModelConfig, rc: RunConfig,
                                 context_fn=context_fn)
         else:
             x, aux = period(i, x, aux)
-    x = rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps)
+    x = rmsnorm(gather_fsdp(params["final_norm"]), x, cfg.rmsnorm_eps)
     return _lm_logits(params, x, cfg, plan), aux
 
 
@@ -558,15 +568,15 @@ def loss_fn(params, batch, cfg: ModelConfig, rc: RunConfig):
     {"ce", "aux"}): the mean next-token cross entropy, f32 logsumexp of
     the logits minus the gold logit, plus the MoE aux loss (0 without
     MoE).  The gold logit is a gather, the same numbers as the JAX
-    package's masked sum over the vocab axis (which keeps that reduction
-    local to a vocab-sharded tensor: `rc.shard_loss` is a mesh concern
-    and is ignored here)."""
+    package's masked sum over the vocab axis, which the dry run's
+    vocab-sharded DTensors take (`sharding.constraints.pick_last`).
+    `rc.shard_loss` is a mesh concern and is ignored here."""
     logits, aux = forward(params, batch["tokens"], cfg, rc,
                           image_embeds=batch.get("image_embeds"))
     lf = logits.to(torch.float32)
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, batch["targets"].long()[..., None])[..., 0]
-    ce = torch.mean(lse - gold)
+    lse = logsumexp(lf)
+    gold = pick_last(lf, batch["targets"])
+    ce = torch.mean(grad_placed(lse - gold))
     aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
     return ce + aux, {"ce": ce, "aux": aux}
 
@@ -617,8 +627,8 @@ def _attn_step(ap, layer, h, pos, pvec, lens, cfg: ModelConfig,
     else:
         for key, new in rows.items():
             if torch.is_tensor(pos):
-                layer[key].index_copy_(1, pvec[:1, 0],
-                                       new.to(layer[key].dtype))
+                index_copy_(layer[key], 1, pvec[:1, 0],
+                            new.to(layer[key].dtype))
             else:
                 layer[key][:, pos] = new[:, 0].to(layer[key].dtype)
         strip = layer
@@ -638,7 +648,7 @@ def _cross_step(sp, layer, h, cfg: ModelConfig, plan):
     (read only).  Returns "xattn-out"'s output."""
     b = h.shape[0]
     nh, dh = cfg.n_heads, cfg.head_dim()
-    q = _cross_q_proj(sp, h, b, 1, nh, dh, plan)
+    q = _cross_q_proj(sp, h, nh, dh, plan)
     n_img = torch.full((b,), layer["k"].shape[1], dtype=torch.long,
                        device=h.device)
     o = decode_attend(q, layer["k"], layer["v"], n_img)
@@ -691,7 +701,7 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
     for i in range(n_periods(cfg)):
         for slot, slot_params, slot_cache in zip(slots, params["slots"],
                                                  cache):
-            sp = _layer(slot_params, i)
+            sp = gather_fsdp(_layer(slot_params, i))
             layer = {key: t[i] for key, t in slot_cache.items()}
             h = rmsnorm(sp["norm1"], x, cfg.rmsnorm_eps)
             if slot.mixer == "mamba":
@@ -701,6 +711,8 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
             else:
                 y = _attn_step(sp["attn"], layer, h, pos, pvec, lens, cfg, rc,
                                plan, active, block_tables)
-            x, _ = _apply_ffn(slot, sp, x + y, cfg, plan)
-    x = rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps)
+            x, _ = _apply_ffn(slot, sp, replicate_over_model(x + y), cfg,
+                              plan)
+            x = replicate_over_model(x)
+    x = rmsnorm(gather_fsdp(params["final_norm"]), x, cfg.rmsnorm_eps)
     return _lm_logits(params, x, cfg, plan), cache

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..sharding.constraints import put_rows
 from .layers import dense_init, linear, swiglu
 
 
@@ -110,9 +111,9 @@ def moe_apply(params, x, cfg: ModelConfig, plan=None, *,
         tok_idx = torch.arange(T, device=x.device).repeat_interleave(k)
         # scatter tokens into (E, C, d); dropped assignments land in a
         # spare row C that is cut off (the reference adds zeros at C - 1)
-        buf = torch.zeros((E, C + 1, d), dtype=x.dtype, device=x.device)
-        buf[flat_ids, torch.where(keep, pos_in_expert, C)] = xt[tok_idx]
-        buf = buf[:, :C]
+        buf = put_rows((E, C + 1, d),
+                       (flat_ids, torch.where(keep, pos_in_expert, C)),
+                       xt[tok_idx])[:, :C]
         g = F.silu(linear(params["w_gate"], buf, "expert-gate", plan,
                           spec="ecd,edf->ecf"))
         u = linear(params["w_up"], buf, "expert-up", plan,

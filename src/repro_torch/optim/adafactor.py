@@ -69,10 +69,12 @@ def adafactor_update(params, grads, state, lr, *, decay=0.8, eps=1e-30,
         fac = _factored(p)
         views = (p, g, v["vr"], v["vc"]) if fac else (p, g, v["v"])
         min_dim = 3 if fac else 2
-        sq = torch.zeros((), dtype=torch.float32, device=p.device)
+        # summed out of place: the dry run's DTensors take no in-place
+        # add into a plain zero
+        sq = 0.0
         for _, gs, *stats in leaf_slices(*views, min_dim=min_dim):
             u = _update(gs, stats, beta2, eps, grad_scale, advance=True)
-            sq += torch.sum(torch.square(u))
+            sq = sq + torch.sum(torch.square(u))
         # update clipping (RMS <= clip_threshold)
         rms = torch.sqrt(sq / p.numel() + eps)
         div = torch.clamp(rms / clip_threshold, min=1.0)

@@ -116,6 +116,32 @@ PROJECTION_WEIGHT_NAMES = frozenset({
 })
 
 
+def quantize_tree(params, min_size: int = 1 << 16):
+    """Quantize every 2-D weight leaf of at least `min_size` elements (a
+    size threshold, where `quantize_model_params` walks by name).
+    Returns the tree with those leaves replaced by {"q": int8, "scale":
+    f32}; dicts, lists and tuples are walked."""
+    if isinstance(params, dict):
+        return {k: quantize_tree(v, min_size) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(quantize_tree(v, min_size) for v in params)
+    if torch.is_tensor(params) and params.ndim == 2 and (
+            params.numel() >= min_size):
+        q, scale = quantize_weight(params)
+        return {"q": q, "scale": scale}
+    return params
+
+
+def quantization_error(w) -> float:
+    """Relative Frobenius error of the int8 round trip:
+    ||dequant(quant(w)) - w|| / (||w|| + 1e-12), in f32."""
+    q, s = quantize_weight(w)
+    back = dequantize_weight(q, s)
+    num = torch.linalg.vector_norm(back - w.float())
+    den = torch.linalg.vector_norm(w.float()) + 1e-12
+    return float(num / den)
+
+
 def _quantize_stacked(w):
     """Quantize a (..., K, N) leaf one (K, N) matrix at a time, so no f32
     copy of the whole stacked leaf is ever made; scales are (..., N)."""

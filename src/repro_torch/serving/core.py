@@ -82,6 +82,21 @@ def sample_token(cfg: ModelConfig, logits, temperature: float,
     return tok[:, None].long()
 
 
+def meta_route_records(cfg: ModelConfig, rc: RunConfig, params, plan,
+                       batch: int, max_len: int,
+                       n_image_tokens: int = 0) -> list[dict]:
+    """The `route_trace` records of one decode step of `params` (on
+    "meta") under `plan`, over a "meta" cache: shapes only, no compute,
+    no kernel launch."""
+    cache = init_cache(cfg, rc, batch, max_len, device="meta",
+                       n_image_tokens=n_image_tokens)
+    tokens = torch.zeros(token_shape(cfg, batch), dtype=torch.long,
+                         device="meta")
+    with route_trace() as records, torch.inference_mode():
+        decode_step(params, cache, tokens, 0, cfg, rc, plan=plan)
+    return records
+
+
 def _meta(tree):
     """The same tree with every tensor as a shape-only "meta" tensor."""
     if isinstance(tree, dict):
@@ -334,13 +349,9 @@ class DecodeCore:
         """label -> {route, use_cim, what, where} as the decode step runs
         them, from one step on "meta" tensors (shapes only, no compute,
         no kernel launch)."""
-        cache = init_cache(self.cfg, self.rc, batch, max_len, device="meta",
-                           n_image_tokens=n_image_tokens)
-        tokens = torch.zeros(token_shape(self.cfg, batch), dtype=torch.long,
-                             device="meta")
-        with route_trace() as records, torch.inference_mode():
-            decode_step(_meta(self.params), cache, tokens, 0, self.cfg,
-                        self.rc, plan=self.plan_table)
+        records = meta_route_records(self.cfg, self.rc, _meta(self.params),
+                                     self.plan_table, batch, max_len,
+                                     n_image_tokens)
         report = {}
         for r in records:
             entry = (self.plan_table.entry(r["label"])

@@ -19,10 +19,10 @@ from typing import Any, Callable
 import torch
 
 from ..configs.base import ModelConfig, RunConfig
-from ..models import decode_step, forward, init_cache
+from ..models import decode_step, forward, init, init_cache
 from ..models.layers import CIM_ROUTE
-from ..quant import KernelPlanTable
-from .core import DecodeCore, sample_token
+from ..quant import KernelPlanTable, quantize_model_params
+from .core import DecodeCore, meta_route_records, sample_token
 
 
 def make_serve_step(cfg: ModelConfig, rc: RunConfig,
@@ -47,6 +47,23 @@ def make_prefill(cfg: ModelConfig, rc: RunConfig,
                                 image_embeds=image_embeds, plan=plan)
         return logits
     return run
+
+
+def decode_routes(cfg: ModelConfig, rc: RunConfig, plan: KernelPlanTable,
+                  batch: int, max_len: int,
+                  n_image_tokens: int = 0) -> dict:
+    """label -> executed route of the plan-gated decode step.
+
+    Builds the INT8-quantized params and the cache on "meta" (no storage,
+    so full production configs fit) and runs the step once under
+    `route_trace`: the route each projection label takes, as the step on
+    the card runs it (`serving.core.meta_route_records`, as
+    `DecodeCore.route_report`).  Used by the dry run's decode cells."""
+    params = quantize_model_params(init(torch.Generator(), cfg,
+                                        device="meta"))
+    records = meta_route_records(cfg, rc, params, plan, batch, max_len,
+                                 n_image_tokens)
+    return {r["label"]: r["route"] for r in records}
 
 
 def cim_fraction(routes: dict) -> float:

@@ -25,11 +25,11 @@ tuple lists them in mesh order, so a tuple in any other order raises.
 not divide the dim (DTensor could shard unevenly), so the spec trees
 stay the JAX package's.
 
-Nothing in the port applies these to a model yet.  The JAX package's
-model also pins q/k/v and the residual with sharding constraints
-(rc.shard_attn / shard_heads / sp_residual); the port drops them (a
-constraint changes no value), and whether they become DTensor
-redistributions is decided with the dry run.
+The dry run (`launch/dryrun.py`) places a model's parameters, optimizer
+state, batch and cache by these rules as DTensors; the JAX package's
+sharding constraints inside the model (q/k/v under rc.shard_attn /
+shard_heads, the residual under sp_residual) are the redistribution
+points of `sharding.constraints`.
 """
 from __future__ import annotations
 

@@ -20,6 +20,7 @@ from ..models import init as model_init
 from ..models import loss_fn
 from ..optim import linear_warmup_cosine, make_optimizer
 from ..optim.adamw import leaf_slices
+from ..sharding.constraints import batch_rows
 from ..tree import leaves, rebuild
 from . import checkpoint as ckpt
 from .fault_tolerance import FailureInjector, StragglerWatchdog
@@ -38,14 +39,15 @@ def _grads_of(params, batch, cfg: ModelConfig, rc: RunConfig):
 
 def _microbatch(batch: dict, n: int, j: int) -> dict:
     """Microbatch j of n: rows [j b/n, (j+1) b/n) of each entry (the JAX
-    package's reshape to (n, b/n, ...))."""
+    package's reshape to (n, b/n, ...); over the dry run's batch-sharded
+    DTensors, that part of each rank's shard:
+    `sharding.constraints.batch_rows`)."""
     out = {}
     for k, v in batch.items():
         if v.shape[0] % n:
             raise ValueError(f"batch of {v.shape[0]} does not split into "
                              f"{n} microbatches")
-        rows = v.shape[0] // n
-        out[k] = v[j * rows:(j + 1) * rows]
+        out[k] = batch_rows(v, n, j)
     return out
 
 
@@ -80,8 +82,9 @@ def make_train_step(cfg: ModelConfig, rc: RunConfig,
             for j in range(mb):
                 l, g = _grads_of(params, _microbatch(batch, mb, j), cfg, rc)
                 if grads is None:
-                    grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                         device=p.device) for p in g]
+                    grads = [torch.zeros_like(
+                        p, dtype=torch.float32,
+                        memory_format=torch.contiguous_format) for p in g]
                 for acc, gi in zip(grads, g):
                     acc.add_(gi)
                 del g
