@@ -12,7 +12,9 @@
   (replaces `repro/kernels/decode_attention.py:_kernel`).
 
 `autotune` reports the blocks, shared memory and grid of the GEMM kernel
-`plan_gemm` picks for a shape (`autotune_report`).
+`plan_gemm` picks for a shape (`autotune_report`).  `csrc/span_mark.cu`
+is the one-thread mark of `repro_torch.spans` (no TPU counterpart),
+built by `build.py` when a span recorder is first armed on a card.
 
 `ops` holds the public wrappers in the JAX package's (b, s, heads, d)
 layouts.  `build.py` compiles each CUDA source with nvcc at first use on a

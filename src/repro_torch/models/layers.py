@@ -21,6 +21,7 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from .. import spans
 from ..quant.int8 import dequant_contract, planned_linear
 from ..quant.lowbit import (dequant_contract_fp8, dequant_contract_int4,
                             planned_linear_fp8, planned_linear_int4)
@@ -48,6 +49,9 @@ DEQUANT_INT4_ROUTE = "int4-dequant-xla"
 CIM_FP8_ROUTE = "cim-fp8-pallas"
 DEQUANT_FP8_ROUTE = "fp8-dequant-xla"
 FLOAT_ROUTE = "xla"
+
+# the MoE expert contractions' labels
+EXPERT_LABELS = ("expert-gate", "expert-up", "expert-down")
 
 
 @contextlib.contextmanager
@@ -91,30 +95,34 @@ def linear(w, x, label: str, plan=None, spec: str | None = None):
     spec or a weight that is not 2-D records the dequant route even when
     its label gates on.  Unknown labels raise KeyError from the plan
     table: model-side label drift must not silently disable gating."""
-    quantized = isinstance(w, dict)
-    use_cim = bool(plan is not None and quantized and plan.use_cim(label))
-    if quantized:
-        if "q4" in w:
-            if use_cim and spec is None and w["q4"].ndim == 2:
-                _record_route(label, CIM_INT4_ROUTE)
-                return planned_linear_int4(x, w["q4"], w["scale"])
-            _record_route(label, DEQUANT_INT4_ROUTE)
-            return dequant_contract_int4(x, w["q4"], w["scale"], spec)
-        if "qf8" in w:
-            if use_cim and spec is None and w["qf8"].ndim == 2:
-                _record_route(label, CIM_FP8_ROUTE)
-                return planned_linear_fp8(x, w["qf8"], w["scale"])
-            _record_route(label, DEQUANT_FP8_ROUTE)
-            return dequant_contract_fp8(x, w["qf8"], w["scale"], spec)
-        if use_cim and spec is None and w["q"].ndim == 2:
-            _record_route(label, CIM_ROUTE)
-            return planned_linear(x, w["q"], w["scale"], use_cim_path=True)
-        _record_route(label, DEQUANT_ROUTE)
-        return dequant_contract(x, w["q"], w["scale"], spec)
-    _record_route(label, FLOAT_ROUTE)
-    if w.dtype != x.dtype:
-        w = w.to(x.dtype)
-    return einsum(spec, x, w) if spec else x @ w
+    # an expert contraction is charged to moe_apply's "moe.experts"
+    with (spans.NO_SPAN if label in EXPERT_LABELS else spans.span("proj")):
+        quantized = isinstance(w, dict)
+        use_cim = bool(plan is not None and quantized
+                       and plan.use_cim(label))
+        if quantized:
+            if "q4" in w:
+                if use_cim and spec is None and w["q4"].ndim == 2:
+                    _record_route(label, CIM_INT4_ROUTE)
+                    return planned_linear_int4(x, w["q4"], w["scale"])
+                _record_route(label, DEQUANT_INT4_ROUTE)
+                return dequant_contract_int4(x, w["q4"], w["scale"], spec)
+            if "qf8" in w:
+                if use_cim and spec is None and w["qf8"].ndim == 2:
+                    _record_route(label, CIM_FP8_ROUTE)
+                    return planned_linear_fp8(x, w["qf8"], w["scale"])
+                _record_route(label, DEQUANT_FP8_ROUTE)
+                return dequant_contract_fp8(x, w["qf8"], w["scale"], spec)
+            if use_cim and spec is None and w["q"].ndim == 2:
+                _record_route(label, CIM_ROUTE)
+                return planned_linear(x, w["q"], w["scale"],
+                                      use_cim_path=True)
+            _record_route(label, DEQUANT_ROUTE)
+            return dequant_contract(x, w["q"], w["scale"], spec)
+        _record_route(label, FLOAT_ROUTE)
+        if w.dtype != x.dtype:
+            w = w.to(x.dtype)
+        return einsum(spec, x, w) if spec else x @ w
 
 
 # --- tree size helpers ------------------------------------------------------

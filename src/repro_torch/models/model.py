@@ -58,6 +58,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from .. import spans
 from ..configs.base import ModelConfig, RunConfig
 from ..sharding.constraints import (constrain_qkv, constrain_residual,
                                     einsum, gather_fsdp, grad_placed,
@@ -614,31 +615,34 @@ def _attn_step(ap, layer, h, pos, pvec, lens, cfg: ModelConfig,
     q, k, v = qkv_proj(ap, h, nh, kvh, dh, plan)
     q = apply_rope(q, pvec, cfg.rope_theta)
     k = apply_rope(k, pvec, cfg.rope_theta)
-    if int8_kv:
-        (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
-        rows = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
-    else:
-        rows = {"k": k, "v": v}
-    if block_tables is not None:
+    with spans.span("attn.kv_write"):
+        if int8_kv:
+            (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+            rows = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        else:
+            rows = {"k": k, "v": v}
         for key, new in rows.items():
-            _paged_write(layer[key], new[:, 0], pvec[:, 0], block_tables,
-                         active)
-        strip = {key: _paged_view(layer[key], block_tables) for key in rows}
-    else:
-        for key, new in rows.items():
-            if torch.is_tensor(pos):
+            if block_tables is not None:
+                _paged_write(layer[key], new[:, 0], pvec[:, 0], block_tables,
+                             active)
+            elif torch.is_tensor(pos):
                 index_copy_(layer[key], 1, pvec[:1, 0],
                             new.to(layer[key].dtype))
             else:
                 layer[key][:, pos] = new[:, 0].to(layer[key].dtype)
+    with spans.span("attn.gather"):
         strip = layer
-    if int8_kv:
-        kd = _dequantize_kv(strip["k"], strip["k_scale"])
-        vd = _dequantize_kv(strip["v"], strip["v_scale"])
-    else:
-        kd, vd = strip["k"], strip["v"]
-    o = decode_attend(q, kd, vd, lens, window=cfg.sliding_window,
-                      grouped=rc.gqa_einsum)
+        if block_tables is not None:
+            strip = {key: _paged_view(layer[key], block_tables)
+                     for key in rows}
+        if int8_kv:
+            kd = _dequantize_kv(strip["k"], strip["k_scale"])
+            vd = _dequantize_kv(strip["v"], strip["v_scale"])
+        else:
+            kd, vd = strip["k"], strip["v"]
+    with spans.span("attn.core"):
+        o = decode_attend(q, kd, vd, lens, window=cfg.sliding_window,
+                          grouped=rc.gqa_einsum)
     return attn_out_proj(ap, o.reshape(b, 1, nh * dh), plan)
 
 
@@ -651,7 +655,8 @@ def _cross_step(sp, layer, h, cfg: ModelConfig, plan):
     q = _cross_q_proj(sp, h, nh, dh, plan)
     n_img = torch.full((b,), layer["k"].shape[1], dtype=torch.long,
                        device=h.device)
-    o = decode_attend(q, layer["k"], layer["v"], n_img)
+    with spans.span("attn.core"):
+        o = decode_attend(q, layer["k"], layer["v"], n_img)
     return attn_out_proj(sp["attn"], o.reshape(b, 1, nh * dh), plan,
                          label="xattn-out")
 
@@ -691,28 +696,29 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
         raise ValueError("ragged per-slot positions need a paged KV cache: "
                          "pass block_tables (see init_paged_cache)")
     b = tokens.shape[0]
-    x = _embed(params, tokens, cfg)
-    if torch.is_tensor(pos):
-        pvec = pos.long().reshape(-1, 1).expand(b, 1)
-        lens = pvec[:, 0] + 1
-    else:
-        pvec = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
-        lens = torch.full((b,), pos + 1, dtype=torch.long, device=x.device)
-    for i in range(n_periods(cfg)):
-        for slot, slot_params, slot_cache in zip(slots, params["slots"],
-                                                 cache):
-            sp = gather_fsdp(_layer(slot_params, i))
-            layer = {key: t[i] for key, t in slot_cache.items()}
-            h = rmsnorm(sp["norm1"], x, cfg.rmsnorm_eps)
-            if slot.mixer == "mamba":
-                y = _mamba_step(sp["mamba"], layer, h, cfg, plan, active)
-            elif slot.mixer == "cross":
-                y = _cross_step(sp, layer, h, cfg, plan)
-            else:
-                y = _attn_step(sp["attn"], layer, h, pos, pvec, lens, cfg, rc,
-                               plan, active, block_tables)
-            x, _ = _apply_ffn(slot, sp, replicate_over_model(x + y), cfg,
-                              plan)
-            x = replicate_over_model(x)
-    x = rmsnorm(gather_fsdp(params["final_norm"]), x, cfg.rmsnorm_eps)
-    return _lm_logits(params, x, cfg, plan), cache
+    with spans.span("decode.step"):
+        x = _embed(params, tokens, cfg)
+        if torch.is_tensor(pos):
+            pvec = pos.long().reshape(-1, 1).expand(b, 1)
+            lens = pvec[:, 0] + 1
+        else:
+            pvec = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+            lens = torch.full((b,), pos + 1, dtype=torch.long, device=x.device)
+        for i in range(n_periods(cfg)):
+            for slot, slot_params, slot_cache in zip(slots, params["slots"],
+                                                     cache):
+                sp = gather_fsdp(_layer(slot_params, i))
+                layer = {key: t[i] for key, t in slot_cache.items()}
+                h = rmsnorm(sp["norm1"], x, cfg.rmsnorm_eps)
+                if slot.mixer == "mamba":
+                    y = _mamba_step(sp["mamba"], layer, h, cfg, plan, active)
+                elif slot.mixer == "cross":
+                    y = _cross_step(sp, layer, h, cfg, plan)
+                else:
+                    y = _attn_step(sp["attn"], layer, h, pos, pvec, lens,
+                                   cfg, rc, plan, active, block_tables)
+                x, _ = _apply_ffn(slot, sp, replicate_over_model(x + y), cfg,
+                                  plan)
+                x = replicate_over_model(x)
+        x = rmsnorm(gather_fsdp(params["final_norm"]), x, cfg.rmsnorm_eps)
+        return _lm_logits(params, x, cfg, plan), cache

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import spans
 from ..configs.base import ModelConfig
 from ..sharding.constraints import put_rows
 from .layers import dense_init, linear, swiglu
@@ -83,47 +84,51 @@ def moe_apply(params, x, cfg: ModelConfig, plan=None, *,
     xt = x.reshape(T, d)
     C = capacity(cfg, T)
 
-    # the router is an ungated f32 matmul (the JAX package promotes
-    # bf16 @ f32 to f32; torch wants both operands in f32)
-    logits = xt.float() @ params["router"].float()           # (T, E)
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_ids = torch.topk(probs, k, dim=-1, sorted=True)
-    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
-    w = gate_vals.to(x.dtype)
+    with spans.span("moe.router"):
+        # the router is an ungated f32 matmul (the JAX package promotes
+        # bf16 @ f32 to f32; torch wants both operands in f32)
+        logits = xt.float() @ params["router"].float()       # (T, E)
+        probs = torch.softmax(logits, dim=-1)
+        gate_vals, expert_ids = torch.topk(probs, k, dim=-1, sorted=True)
+        total = gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+        gate_vals = gate_vals / total
+        w = gate_vals.to(x.dtype)
 
-    if T <= C and not force_buffered:
-        # no expert can overflow: every expert over every token, then
-        # each token's top-k outputs
-        g = F.silu(linear(params["w_gate"], xt, "expert-gate", plan,
-                          spec="td,edf->etf"))
-        u = linear(params["w_up"], xt, "expert-up", plan, spec="td,edf->etf")
-        eout = linear(params["w_down"], g * u, "expert-down", plan,
-                      spec="etf,efd->etd")                  # (E, T, d)
-        sel = torch.gather(eout.transpose(0, 1), 1,
-                           expert_ids[:, :, None].expand(T, k, d))
-        yt = _sum_over_k(sel * w[:, :, None])
-    else:
-        # position of each (token, k) assignment within its expert
-        flat_ids = expert_ids.reshape(-1)                    # (T*k,)
-        pos = torch.cumsum(_one_hot(flat_ids, E, torch.int32), dim=0) - 1
-        pos_in_expert = torch.gather(pos, 1, flat_ids[:, None])[:, 0]
-        keep = pos_in_expert < C
-        tok_idx = torch.arange(T, device=x.device).repeat_interleave(k)
-        # scatter tokens into (E, C, d); dropped assignments land in a
-        # spare row C that is cut off (the reference adds zeros at C - 1)
-        buf = put_rows((E, C + 1, d),
-                       (flat_ids, torch.where(keep, pos_in_expert, C)),
-                       xt[tok_idx])[:, :C]
-        g = F.silu(linear(params["w_gate"], buf, "expert-gate", plan,
-                          spec="ecd,edf->ecf"))
-        u = linear(params["w_up"], buf, "expert-up", plan,
-                   spec="ecd,edf->ecf")
-        eout = linear(params["w_down"], g * u, "expert-down", plan,
-                      spec="ecf,efd->ecd")                  # (E, C, d)
-        # gather back with the routing weights (0 for dropped ones)
-        back = eout[flat_ids, torch.where(keep, pos_in_expert, C - 1)]
-        wk = (gate_vals.reshape(-1) * keep).to(x.dtype)
-        yt = _sum_over_k((back * wk[:, None]).reshape(T, k, d))
+    with spans.span("moe.experts"):
+        if T <= C and not force_buffered:
+            # no expert can overflow: every expert over every token, then
+            # each token's top-k outputs
+            g = F.silu(linear(params["w_gate"], xt, "expert-gate", plan,
+                              spec="td,edf->etf"))
+            u = linear(params["w_up"], xt, "expert-up", plan,
+                       spec="td,edf->etf")
+            eout = linear(params["w_down"], g * u, "expert-down", plan,
+                          spec="etf,efd->etd")                  # (E, T, d)
+            sel = torch.gather(eout.transpose(0, 1), 1,
+                               expert_ids[:, :, None].expand(T, k, d))
+            yt = _sum_over_k(sel * w[:, :, None])
+        else:
+            # position of each (token, k) assignment within its expert
+            flat_ids = expert_ids.reshape(-1)                    # (T*k,)
+            pos = torch.cumsum(_one_hot(flat_ids, E, torch.int32), dim=0) - 1
+            pos_in_expert = torch.gather(pos, 1, flat_ids[:, None])[:, 0]
+            keep = pos_in_expert < C
+            tok_idx = torch.arange(T, device=x.device).repeat_interleave(k)
+            # scatter tokens into (E, C, d); dropped assignments land in a
+            # spare row C that is cut off (the reference adds zeros at C - 1)
+            buf = put_rows((E, C + 1, d),
+                           (flat_ids, torch.where(keep, pos_in_expert, C)),
+                           xt[tok_idx])[:, :C]
+            g = F.silu(linear(params["w_gate"], buf, "expert-gate", plan,
+                              spec="ecd,edf->ecf"))
+            u = linear(params["w_up"], buf, "expert-up", plan,
+                       spec="ecd,edf->ecf")
+            eout = linear(params["w_down"], g * u, "expert-down", plan,
+                          spec="ecf,efd->ecd")                  # (E, C, d)
+            # gather back with the routing weights (0 for dropped ones)
+            back = eout[flat_ids, torch.where(keep, pos_in_expert, C - 1)]
+            wk = (gate_vals.reshape(-1) * keep).to(x.dtype)
+            yt = _sum_over_k((back * wk[:, None]).reshape(T, k, d))
     y = yt.reshape(b, l, d)
 
     if m.n_shared_experts:

@@ -40,9 +40,16 @@ def make_prefill(cfg: ModelConfig, rc: RunConfig,
 
     Fills no cache (as in the JAX package).  Pass the *prefill* phase's
     plan table (DecodeCore.prefill_plan_table): each serving phase is gated
-    by its own What/When/Where verdicts.  Runs under inference mode."""
+    by its own What/When/Where verdicts.  Runs under inference mode, in
+    a host range named "prefill.forward" that a running torch.profiler
+    records beside its device activities, on their clock.  The range is
+    an op-scoped record (`_RecordFunctionFast`), not
+    `torch.profiler.record_function`: a user annotation would also put
+    a device-side copy of the range among the device's activities, over
+    every idle gap inside the forward."""
     def run(params, tokens, image_embeds=None):
-        with torch.inference_mode():
+        with torch.inference_mode(), \
+                torch._C._profiler._RecordFunctionFast("prefill.forward"):
             logits, _ = forward(params, tokens, cfg, rc,
                                 image_embeds=image_embeds, plan=plan)
         return logits

@@ -34,6 +34,14 @@ capture launched, takes those counts back out (a capture launches
 nothing), and adds them again on every replay, so a replayed step counts
 exactly as the eager step does.
 
+With a span recorder armed (`repro_torch.spans`), the first call also
+captures a marked twin: the same step with the span marks in it, in the
+plain graph's memory pool (each replay's output is copied out at once,
+so the twins' temporaries may share addresses).  The marked twin
+replays while that recorder is open, the plain graph at every other
+time; both credit the same launch counts, and `marks` is the marks one
+marked replay issues.  With nothing armed, nothing else is captured.
+
 `capture_lock` is held by every capture.  In CUDA's default (global)
 capture mode no thread of the process may make a call that syncs or
 copies to or from the host while any stream captures; the plan service's
@@ -48,6 +56,7 @@ import threading
 
 import torch
 
+from .. import spans
 from ..tree import leaves
 
 capture_lock = threading.Lock()
@@ -104,24 +113,17 @@ class StepGraph:
         self.static_out = None
         self.credit: list | None = None
         self.captures = 0
+        self.marked = self.marked_out = self.marked_by = None
+        self.marks = 0
 
     def _static(self, x):
         if torch.is_tensor(x):
             return x.clone()
         return torch.full((), x, dtype=torch.long, device="cuda")
 
-    def _capture(self, inputs) -> None:
-        static = [self._static(x) for x in inputs]
-        kept = list(leaves(self.keep))
-        saved = [t.clone() for t in kept]
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self.fn(*static)                    # warm-up, launched for real
-        torch.cuda.current_stream().wait_stream(side)
-        for t, old in zip(kept, saved):         # undo the warm-up's update
-            t.copy_(old)
-        del saved
+    def _record(self, static, pool=None):
+        """Capture one call of `fn` on `static` into a new graph (in the
+        memory pool `pool`, or a private one): (graph, out, credit)."""
         graph = torch.cuda.CUDAGraph()
         before = _snapshot()
         collecting = gc.isenabled()
@@ -129,7 +131,7 @@ class StepGraph:
         gc.disable()
         try:
             with capture_lock:
-                with torch.cuda.graph(graph):
+                with torch.cuda.graph(graph, pool=pool):
                     out = self.fn(*static)
         except Exception as e:
             _add(_delta(_snapshot(), before), -1)
@@ -139,8 +141,35 @@ class StepGraph:
         finally:
             if collecting:
                 gc.enable()
-        self.credit = _delta(_snapshot(), before)
-        _add(self.credit, -1)              # the capture launched nothing
+        credit = _delta(_snapshot(), before)
+        _add(credit, -1)                   # the capture launched nothing
+        return graph, out, credit
+
+    def _capture(self, inputs) -> None:
+        static = [self._static(x) for x in inputs]
+        kept = list(leaves(self.keep))
+        saved = [t.clone() for t in kept]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with spans.forced(False), torch.cuda.stream(side):
+            self.fn(*static)                    # warm-up, launched for real
+        torch.cuda.current_stream().wait_stream(side)
+        for t, old in zip(kept, saved):         # undo the warm-up's update
+            t.copy_(old)
+        del saved
+        with spans.forced(False):
+            graph, out, self.credit = self._record(static)
+        rec = spans.recorder()
+        if rec is not None:
+            marks = rec.marks
+            with spans.forced(True):
+                marked, marked_out, credit = self._record(static,
+                                                          graph.pool())
+            if credit != self.credit:
+                raise RuntimeError("the marked twin of the step launched "
+                                   "other kernels than the plain step")
+            self.marked, self.marked_out = marked, marked_out
+            self.marked_by, self.marks = rec, rec.marks - marks
         self.graph, self.static_in, self.static_out = graph, static, out
         self.captures += 1
 
@@ -153,6 +182,10 @@ class StepGraph:
                     dst.copy_(src, non_blocking=True)
             else:
                 dst.fill_(src)
-        self.graph.replay()
+        graph, out = self.graph, self.static_out
+        if self.marked is not None and spans.recorder() is self.marked_by \
+                and spans.active():
+            graph, out = self.marked, self.marked_out
+        graph.replay()
         _add(self.credit)
-        return self.static_out.clone()
+        return out.clone()

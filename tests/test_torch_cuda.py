@@ -856,6 +856,166 @@ def test_capture_holds_off_the_garbage_collector(cuda):
     gc.collect()                              # the old graph goes now
 
 
+# --- spans inside the captured step ------------------------------------------
+# repro_torch.spans: with a recorder armed, each StepGraph captures a marked
+# twin beside the plain graph; the marks' self times sum to the marked
+# step's in-graph device time.
+
+def test_span_mark_resolution(cuda):
+    """1,000 marks back to back, each charging a slot of its own: the
+    intervals sum to the CUDA-event time of the run within 5% (the events
+    also hold the first mark itself), and the device's global timer
+    ticks at 1 us or finer."""
+    from math import gcd
+    from repro_torch import spans
+    n = 1000
+    acc = torch.zeros(n, dtype=torch.int64, device="cuda")
+    last = torch.zeros(1, dtype=torch.int64, device="cuda")
+    spans.mark(acc, last, -1)
+    torch.cuda.synchronize()
+    acc.zero_()
+    last.zero_()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for i in range(n):
+        spans.mark(acc, last, i)
+    end.record()
+    torch.cuda.synchronize()
+    steps = acc.tolist()
+    assert steps[0] == 0                  # the first mark only sets the time
+    assert min(steps[1:]) >= 0
+    ms = start.elapsed_time(end)
+    assert abs(sum(steps) / 1e6 - ms) <= 0.05 * ms, (sum(steps), ms)
+    tick = 0
+    for d in steps[1:]:
+        tick = gcd(tick, d)
+    assert 0 < tick <= 1000, tick
+
+
+def _span_step(cuda, slots=32, blocks=8, bs=16):
+    """Reduced qwen2-7b's paged batch step at `slots` slots of `blocks`
+    blocks each, every slot active: (step, inputs) after its first call
+    (which captures)."""
+    from repro_torch.models import init_paged_cache
+    cfg, rc, core = _graph_core(cuda)
+    pools = init_paged_cache(cfg, rc, slots, slots * blocks, bs,
+                             device="cuda")
+    tables = torch.arange(slots * blocks, dtype=torch.int32,
+                          device="cuda").reshape(slots, blocks)
+    tok = torch.randint(0, cfg.vocab, (slots, 1), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(4))
+    pos = torch.arange(slots, dtype=torch.int32, device="cuda") * 3 + 5
+    active = torch.ones(slots, dtype=torch.bool, device="cuda")
+    inputs = (pools, tok, pos, active, tables)
+    step = core.batch_step
+    step(*inputs)
+    return step, inputs, cfg
+
+
+def _kernels_of(graph) -> list:
+    """The kernel names one replay of `graph` launches, by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    return sorted(e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def test_span_sections_sum_to_the_marked_replay(cuda):
+    """The marked twin's sections, the root's self time included, sum to
+    within 5% of its replays' CUDA-event time; the sections are the dense
+    step's five."""
+    from repro_torch import spans
+    rec = spans.arm("cuda")
+    try:
+        step, _, cfg = _span_step(cuda)
+        graph = next(iter(step.graphs.values()))
+        assert graph.marked is not None
+        # root + lm_head + 7 projections and 3 attention sections a layer
+        assert graph.marks == 2 * (2 + 10 * cfg.n_layers)
+        for _ in range(3):
+            graph.marked.replay()
+        n = 50
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        rec.open()
+        start.record()
+        for _ in range(n):
+            graph.marked.replay()
+        end.record()
+        torch.cuda.synchronize()
+        rec.close()
+        sec = rec.seconds()
+        ms = start.elapsed_time(end)
+        total = sum(sec.values()) * 1e3
+        assert abs(total - ms) <= 0.05 * ms, (sec, ms)
+        assert {k for k, v in sec.items() if v > 0} == {
+            "decode.step", "attn.kv_write", "attn.gather", "attn.core",
+            "proj"}
+    finally:
+        spans.disarm()
+
+
+def test_span_twins_launch_the_parents_kernels(cuda):
+    """The plain twin launches per replay exactly the kernels of a step
+    captured with no recorder armed; the marked twin those and one mark
+    kernel per mark.  Both twins credit the same launch counts, and a
+    replay of either moves the counters by them."""
+    from repro_torch import spans
+    plain_step, _, _ = _span_step(cuda, slots=4, blocks=2)
+    unarmed = next(iter(plain_step.graphs.values()))
+    assert unarmed.marked is None
+    want = _kernels_of(unarmed.graph)
+    rec = spans.arm("cuda")
+    try:
+        step, inputs, cfg = _span_step(cuda, slots=4, blocks=2)
+        graph = next(iter(step.graphs.values()))
+        assert _kernels_of(graph.graph) == want
+        marked = _kernels_of(graph.marked)
+        marks = [k for k in marked if "span_mark" in k]
+        assert len(marks) == graph.marks
+        assert sorted(k for k in marked if "span_mark" not in k) == want
+        assert graph.credit == unarmed.credit
+        per_step = 7 * cfg.n_layers + 1
+        for on in (False, True):
+            if on:
+                rec.open()
+            before = int8_gemm.launches
+            step(*inputs)
+            assert int8_gemm.launches - before == per_step, on
+        rec.close()
+        assert step.captures == 1
+    finally:
+        spans.disarm()
+
+
+def test_prefill_forward_range_is_host_only(cuda):
+    """`make_prefill`'s "prefill.forward" range is among a profiler's host
+    records, once per forward, and not among its device records, whose
+    busy union it would otherwise fill over the forward's idle gaps."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import make_prefill
+    cfg = reduced(ARCHS["qwen2-7b"])
+    params = init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                  device="cuda")
+    prefill = make_prefill(cfg, RunConfig())
+    ids = torch.zeros((1, 16), dtype=torch.long, device="cuda")
+    prefill(params, ids)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            prefill(params, ids)
+        torch.cuda.synchronize()
+    host, dev = [], []
+    for r in prof.profiler.kineto_results.events():
+        kind = getattr(r.device_type(), "name", str(r.device_type()))
+        (dev if kind.endswith("CUDA") else host).append(r.name())
+    assert host.count("prefill.forward") == 2
+    assert "prefill.forward" not in dev and dev
+
+
 # --- the moe, ssm and hybrid families as CUDA graphs -------------------------
 
 FAMILY_ARCHS = ("qwen2-moe-a2.7b", "mamba2-780m", "jamba-1.5-large-398b")
