@@ -57,9 +57,18 @@ compressed all-reduce).  In order it:
    device time per call (`device_ms`, `library_device_ms`);
 5. does the same for the flash-decoding kernel (length 0, 7, 300 and S;
    S = 300, not a multiple of 512; designs "mma" = TMA ring + mma.sync
-   for bf16, "fma" for f32), timed at qwen2-7b's decode_32k shape; its
-   main path is its public wrapper `ops.decode_attention`, called once
-   there with the launch count read around the call;
+   for bf16, "fma" for f32), timed at qwen2-7b's decode_32k shape; the
+   TPU contract's main path is its public wrapper `ops.decode_attention`,
+   called once there with the launch count read around the call.  Then
+   the paged design (`paged_decode_attention`, the engine's decode
+   attention read through the block tables) at the engine cells' shapes
+   (PAGED_CASES: 32 slots x 512 in blocks of 16, 28/4 and 16/16 heads),
+   at ragged lengths with and without a window, against its plain version,
+   and timed (CUDA events, device time) at ragged lengths and at S beside
+   its bound at the valid lengths, its plain version and
+   `scaled_dot_product_attention` over the gathered strips; its launches
+   are counted on the engines of phases 16 (a) (one per layer a step) and
+   21, 24 and 25, and phase 16 (c)'s int8 KV pool must launch none;
 6. holds the sweep kernel against its plain version bit for bit (NaN
    positions included) on the CUDA tensors and on a CPU copy of the first
    65,536 rows: every candidate row of the 1338-verdict golden grid in
@@ -286,8 +295,9 @@ prefill forward and the engine, for the vlm the serve and the prefill
 forward, reduced jamba's serve and engine, and phase 32 (b)'s block
 report; the qwen2-7b,
 qwen2-moe-a2.7b, musicgen-large and vlm prefill forwards for
-flash_attention; one call of the public wrapper for decode_attention),
-counted from 0 just before that path ran.
+flash_attention; one call of the public wrapper for decode_attention;
+phase 16 (a)'s engine run and the families' engine runs for
+paged_decode_attention), counted from 0 just before that path ran.
 
 Any failed phase raises and exits non-zero; so does a machine with no
 CUDA device or a directory without the port.
@@ -341,6 +351,12 @@ FLASH_CASES = [(1, PREFILL, PREFILL, 28, 4, 128, 0),
 # decode cases (b, S, H, KV, d), each in bf16 and f32 at length 0, 7, 300, S
 DECODE_CASES = [(BATCH, DECODE_S, 28, 4, 128), (3, 4096, 28, 4, 128),
                 (2, 300, 8, 1, 64)]
+# the paged design at the engine cells' attention (b slots of S positions in
+# blocks of bs; qwen2-7b 28/4 and qwen2-moe-a2.7b 16/16 heads, d 128):
+# (b, S, bs, H, KV, d), checked with and without a window, timed at ragged
+# lengths and at S
+PAGED_CASES = [(32, 512, 16, 28, 4, 128), (32, 512, 16, 16, 16, 128)]
+PAGED_WINDOW = 64
 ATTN_DTYPES = ("bfloat16", "float32")
 # continuous batching (phase 16): slots, block size, length cap, KV blocks
 # (full provisioning: 8 x ceil(65 / 16)), requests, Poisson rate, and the
@@ -663,6 +679,108 @@ def check_decode(torch, ops, da_mod) -> list[dict]:
     return rows
 
 
+def paged_inputs(torch, case, seed: int, full: bool = False):
+    """q, pools (b * S / bs blocks, shuffled among the slots) and int32
+    tables for a PAGED_CASES case, and int64 lengths: ragged (0, 1, the
+    edges of a block and a tile, S, past S, then uniform in [1, S]), or
+    every slot at S."""
+    b, S, bs, h, kv, d = case
+    mb = S // bs
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, kp, vp = (torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for shape in ((b, 1, h, d), (b * mb, bs, kv, d),
+                                      (b * mb, bs, kv, d)))
+    tables = torch.randperm(b * mb, generator=gen, device="cuda").to(
+        torch.int32).view(b, mb)
+    edge = [0, 1, bs - 1, bs, bs + 1, 63, 64, 65, S, S + 50][:b]
+    lengths = torch.randint(1, S + 1, (b,), generator=gen, device="cuda")
+    if full:
+        lengths.fill_(S)
+    else:
+        lengths[:len(edge)] = torch.tensor(edge, device="cuda")
+    return q, kp, vp, tables, lengths
+
+
+def check_paged(torch, ops, da_mod) -> list[dict]:
+    """paged_decode_attention vs the plain version on every PAGED_CASES
+    case at ragged lengths, without and with a window, element by element
+    (decode_attention_check on the folded result, the gathered strips and
+    one length per query row)."""
+    from repro_torch.models.model import _paged_view
+    rows = []
+    for case in PAGED_CASES:
+        q, kp, vp, tables, lengths = paged_inputs(torch, case, seed=case[3])
+        kf, vf = (ops.fold(_paged_view(p, tables)) for p in (kp, vp))
+        for window in (0, PAGED_WINDOW):
+            before = dict(da_mod.paged_decode_attention.launches_by_design)
+            got = da_mod.paged_decode_attention(q, kp, vp, tables, lengths,
+                                                window)
+            r = da_mod.decode_attention_check(
+                ops.fold(got), ops.fold(q), kf, vf,
+                lengths.repeat_interleave(case[3]), window)
+            rows.append({"case": case + (window,),
+                         "design": changed(da_mod.paged_decode_attention,
+                                           before), **r})
+        del q, kp, vp, kf, vf
+        torch.cuda.empty_cache()
+    return rows
+
+
+def time_paged(torch, da_mod, case, full: bool) -> dict:
+    """The paged kernel, its plain version and the yardstick at a
+    PAGED_CASES case: CUDA-event times (`ms`), profiler device times
+    (`device_ms`), and the bound at the rows' valid lengths (each valid
+    K/V byte read once, q read and the output written once, at 3.35 TB/s;
+    the operations, 4 d per (query head, valid position) at 989 TFLOP/s,
+    are ~1000x smaller).  The yardstick (`library_ms`, which the port
+    never calls) is scaled_dot_product_attention over the strips gathered
+    beforehand, with the lengths as a boolean mask."""
+    import torch.nn.functional as F
+    from repro_torch.models.model import _paged_view
+    b, S, bs, h, kv, d = case
+    q, kp, vp, tables, lengths = paged_inputs(torch, case, seed=11,
+                                              full=full)
+
+    def kern(i):
+        return da_mod.paged_decode_attention(q, kp, vp, tables, lengths)
+
+    def plain(i):
+        return da_mod.paged_decode_attention_ref(q, kp, vp, tables, lengths)
+    ks, vs = (_paged_view(p, tables).transpose(1, 2) for p in (kp, vp))
+    mask = (torch.arange(S, device="cuda") < lengths[:, None])[:, None, None]
+
+    def library(i):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), ks, vs, attn_mask=mask, enable_gqa=True)
+    valid = int(lengths.clamp(0, S).sum())
+    out = {"ms": time_ms(torch, kern, 1), "device_ms": device_ms(
+        torch, kern, 1), "plain_ms": time_ms(torch, plain, 1),
+        "library_ms": time_ms(torch, library, 1),
+        "library_device_ms": device_ms(torch, library, 1),
+        "valid_positions": valid}
+    out["bytes_ms"] = 1e3 * (valid * kv * d * 2 * 2 + 2 * q.numel() * 2) \
+        / HBM_BYTES_PER_S
+    out["ops_ms"] = 1e3 * 4 * d * h * valid / BF16_OPS_PER_S
+    out["bound_ms"] = max(out["bytes_ms"], out["ops_ms"])
+    lib_err = (library(0).transpose(1, 2).float()
+               - kern(0).float()).abs().max().item()
+    out["line"] = (
+        f"paged_decode_attention at (b, S, bs, H, KV, d) = {case}, "
+        f"{'every slot at S' if full else 'ragged lengths'} ({valid} valid "
+        f"positions): kernel {out['ms']!r} ms, plain {out['plain_ms']!r} "
+        f"ms, library_ms {out['library_ms']!r} ms "
+        f"(scaled_dot_product_attention over the gathered strips, masked; "
+        f"max|d| vs the kernel {lib_err!r}); bound {out['bound_ms']!r} ms "
+        f"(bytes {out['bytes_ms']!r}, operations {out['ops_ms']!r}), "
+        f"{out['bound_ms'] / out['ms']:.1%} of bound (CUDA-event times); "
+        f"profiler device times: kernel {out['device_ms']!r} ms "
+        f"({out['bound_ms'] / out['device_ms']:.1%} of bound), library "
+        f"{out['library_device_ms']!r} ms")
+    del q, kp, vp, ks, vs
+    torch.cuda.empty_cache()
+    return out
+
+
 def golden_grid(ARCHS, SHAPES, gemms_of_model, phase_gemms_of_model):
     """(arch, shape, precision, GEMM) of tests/test_golden_verdicts.py's
     1338-row grid, in its order."""
@@ -889,7 +1007,7 @@ def families(torch, card: str) -> list[dict]:
 
     import numpy as np
     from repro_torch.configs import ARCHS, RunConfig, reduced
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, paged_decode_attention
     from repro_torch.kernels.int8_gemm import (int8_gemm, int8_gemm_ref,
                                                plan_gemm)
     from repro_torch.models import (clone_cache, decode_step, init,
@@ -1251,6 +1369,7 @@ def families(torch, card: str) -> list[dict]:
         reqs = synthetic_requests(cfg, FAM_REQUESTS, seed=0,
                                   prompt_len=(8, 32), new_tokens=(8, 32))
         reset_counts(int8_gemm)
+        reset_counts(paged_decode_attention)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         eng.run(reqs, None)
@@ -1264,7 +1383,20 @@ def families(torch, card: str) -> list[dict]:
         expected = sum(ph[k] * sum(c[3] for c in gated_calls(cfg_calls, t))
                        for k, t in tables.items())
         new_tokens = sum(len(r.tokens) for r in done)
+        # every attention layer of every step on the paged design (the
+        # pools are bf16 in blocks of FAM_BLOCK rows)
+        attn = n_periods(cfg) * sum(sl.mixer == "attn"
+                                    for sl in period_slots(cfg))
+        paged = paged_decode_attention.launches_by_design["paged"]
+        print(f"{what} engine: paged_decode_attention launches "
+              f"{paged_decode_attention.launches} (expected {n_steps} steps "
+              f"x {attn} attention layers = {n_steps * attn})")
+        if paged_decode_attention.launches != n_steps * attn or (
+                paged != n_steps * attn):
+            raise RuntimeError(f"{what} engine launched the paged kernel "
+                               f"{paged} times, expected {n_steps * attn}")
         out = {"launches": int8_gemm.launches, "steps": n_steps,
+               "paged_launches": paged,
                "wall_s": wall,
                "tokens_per_s": new_tokens / max(r.t_done for r in done),
                "ms_per_step": 1e3 * wall / max(1, n_steps)}
@@ -1613,6 +1745,17 @@ def families(torch, card: str) -> list[dict]:
                 f"{FAM_SLOTS} slots; launches counted over the "
                 f"{FAM_REQUESTS}-request all-at-once engine run "
                 f"({eng_['steps']} steps)"))
+            if eng_["paged_launches"]:
+                out.append({
+                    "name": "paged_decode_attention", "route": "cuda",
+                    "path": f"{arch} continuous batching",
+                    "source": "src/repro_torch/kernels/csrc/"
+                              "decode_attention.cu",
+                    "launches": eng_["paged_launches"], "design": "paged",
+                    "work": f"launches counted over the {FAM_REQUESTS}-"
+                            f"request all-at-once engine run "
+                            f"({eng_['steps']} steps, one per attention "
+                            f"layer a step); times: phase 5's rows"})
     hdec = per_path(rows, hyb_serve["decode_calls"], BATCH)
     out.append(entry(hdec, hyb_serve["launches"] + hyb_eng["launches"],
                      f"{HYBRID_ARCH} reduced serve and engine",
@@ -2933,6 +3076,23 @@ def main() -> int:
           f"by design {decode_by_design} [{card}]")
     del q, kc, vc, qf, kf, vf, q4, k4, v4, out
     torch.cuda.empty_cache()
+    # the paged design at the engine cells' attention
+    prows = check_paged(torch, ops, da_mod)
+    for r in prows:
+        print(f"paged_decode_attention (b, S, bs, H, KV, d, window) = "
+              f"{r['case']}, ragged lengths, design {r['design']}: max|d|="
+              f"{r['max_abs_err']!r}, max |d|/bound={r['worst']!r} "
+              f"{'ok' if r['ok'] else 'FAIL'}")
+    if not all(r["ok"] and r["design"] == "paged" for r in prows):
+        raise RuntimeError(f"paged_decode_attention disagrees with its plain "
+                           f"version ({ATTN_TOL_DOC}) or ran another design: "
+                           f"{[r for r in prows if not r['ok']]}")
+    paged_times = {}
+    for case in PAGED_CASES:
+        for full in (False, True):
+            t = paged_times[case, full] = time_paged(torch, da_mod, case,
+                                                     full)
+            print(f"{t['line']} [{card}]")
 
     # --- 6. the sweep kernel against its plain version, bit for bit ----------
     configs = standard_configs()
@@ -3714,6 +3874,7 @@ def main() -> int:
     # (a) arrivals all at once
     eng = cb_engine(cb_core)
     reset_counts(int8_gemm)
+    reset_counts(da_mod.paged_decode_attention)
     caps0 = cb_core.batch_decode_executables
     reqs = cb_requests()
     cb_all, cb_streams, done = cb_run(eng, reqs, None, "arrivals all at once")
@@ -3744,6 +3905,18 @@ def main() -> int:
     if cb_core.batch_decode_executables != len(served):
         raise RuntimeError("the engine captured a batch step more than once "
                            "per plan")
+    # its main path: every attention layer of every step (a replay, or a
+    # capture's warm-up) on the paged design, no strip gathered
+    cb_paged = dict(da_mod.paged_decode_attention.launches_by_design)
+    cb_paged_expected = (cb_all["steps"] + new_caps) * L
+    print(f"engine, all at once: paged_decode_attention launches "
+          f"{da_mod.paged_decode_attention.launches} by design {cb_paged} "
+          f"(expected ({cb_all['steps']} steps + {new_caps} captures) x {L} "
+          f"attention layers = {cb_paged_expected})")
+    if cb_paged != {"paged": cb_paged_expected} or (
+            da_mod.paged_decode_attention.launches != cb_paged_expected):
+        raise RuntimeError(f"the engine launched the paged kernel "
+                           f"{cb_paged}, expected {cb_paged_expected}")
 
     # one engine step, graphed, against the eager decode_step on a clone
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -3828,8 +4001,12 @@ def main() -> int:
                          cb_core.params, quantize=True, plan_batch=CB_SLOTS,
                          plan_max_len=CB_MAX_LEN, device="cuda")
     kv_eng = cb_engine(kv_core)
+    paged_before = da_mod.paged_decode_attention.launches
     cb_kv, kv_streams, _ = cb_run(kv_eng, cb_requests(), None,
                                   "int8 KV cache, all at once")
+    if da_mod.paged_decode_attention.launches != paged_before:
+        raise RuntimeError("the int8 KV pool reached the paged kernel: it "
+                           "takes decode_attend")
     kv_first = sum(kv_streams[rid][0] == cb_streams[rid][0]
                    for rid in cb_streams)
     need = math.ceil(MIN_TOKEN_AGREEMENT / BATCH * CB_REQUESTS)
@@ -4056,8 +4233,38 @@ def main() -> int:
         "design": "+".join(d for d, c in decode_by_design.items() if c),
         "work": f"one call at ({BATCH}, {DECODE_S}, {cfg.n_heads}/"
                 f"{cfg.n_kv_heads}, {dh}) bf16, length {DECODE_S} ({ARCH} "
-                f"decode_32k); its main path is one call of the public "
-                f"wrapper ops.decode_attention (no model calls it)"}]
+                f"decode_32k); launches: one call of the TPU contract's "
+                f"public wrapper ops.decode_attention (the engine's steps "
+                f"run the paged design, the next entries)"}]
+    for case in PAGED_CASES:
+        t = paged_times[case, False]
+        kernels.append({
+            "name": "paged_decode_attention", "route": "cuda",
+            "path": "ops.paged_decode_attention in the engine's decode step",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "none: the engine's decode attention, which the JAX "
+                        "package leaves to XLA (models/attention.py:"
+                        "decode_attend over the gathered strips)",
+            "launches": (cb_paged["paged"] if case[3] == cfg.n_heads
+                         else None),
+            "max_abs_err": max(r["max_abs_err"] for r in prows
+                               if r["case"][:6] == case),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                         else "operations"),
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "library_device_ms": t["library_device_ms"],
+            "full_length": {k: paged_times[case, True][k] for k in (
+                "ms", "device_ms", "bound_ms", "plain_ms", "library_ms")},
+            "design": "paged",
+            "work": f"one call at (b, S, bs, H, KV, d) = {case} bf16, "
+                    f"ragged lengths ({t['valid_positions']} valid "
+                    f"positions; full_length: every slot at S)"
+                    + (f"; launches counted over phase 16 (a)'s engine run "
+                       f"({L} per step)" if case[3] == cfg.n_heads else
+                       "; launches: the qwen2-moe-a2.7b continuous "
+                       "batching entry (phase 21)")})
     kernels += [{
         "name": "int8_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_gemm.cu",

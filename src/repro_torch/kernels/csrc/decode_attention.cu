@@ -45,6 +45,22 @@
 //    contribute exp(-1e30 - m) = 0 exactly, so skipping them is the same
 //    function.  With length <= 0 every position is visited.
 // f32 inputs keep the FMA kernel (computing in f32), off every path.
+//
+// The paged design (`paged_decode_attention_launch`) replaces no TPU
+// kernel: it is the engine's decode attention, which the JAX package
+// computes with XLA over the gathered strips (models/attention.py:
+// decode_attend).  It reads the layer's block pool (n_blocks, bs, kv, d)
+// in place through each slot's block table, at each slot's own length
+// and window, read from device memory: no gathered strip, no GQA copy, no
+// f32 copy of the cache, no host sync, so it captures into a CUDA graph.
+// Bound: each valid K/V byte read once (at qwen2-7b's engine step, 32
+// slots x 512 positions x 4 kv heads x 128 x 2 x 2 B = 33.6 MB a layer at
+// most, ~10 us at 3.35 TB/s; less at shorter lengths).  It keeps the mma
+// design's blocks, ring, products, p as hi/lo pair and merge
+// (`consume`): a 64-position tile comes in as boxes of one pool block's
+// rows, each from the physical block the slot's table names.  With one
+// split per row (the plan whenever the blocks fill a wave) it writes the
+// output itself and launches no combine kernel.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -237,6 +253,31 @@ struct Layout {
   static constexpr int ALLOC = BYTES + 1024;            // for alignment
 };
 
+// A block's ring: its shared memory aligned to 1024 bytes (the swizzle
+// atoms) and the stages' barriers, full (the producer's arrive and the
+// TMA bytes) and empty (one arrive per consumer warp), initialised and
+// made visible to every thread before the constructor returns.
+template <int DP>
+struct Ring {
+  uint32_t base, full0, empty0;
+  uint8_t* sbase;
+  __device__ __forceinline__ explicit Ring(uint8_t* smem_raw) {
+    const uint32_t raw = smem_u32(smem_raw);
+    base = (raw + 1023u) & ~1023u;
+    sbase = smem_raw + (base - raw);
+    full0 = base + Layout<DP>::BAR_OFF;
+    empty0 = full0 + 8 * STAGES;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_init(full0 + 8 * s, 1);
+        mbar_init(empty0 + 8 * s, WARPS);
+      }
+      fence_barrier_init();
+    }
+    __syncthreads();
+  }
+};
+
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -278,76 +319,34 @@ __device__ __forceinline__ uint32_t tile_at(uint32_t tile, int row,
          + (((piece % 8) ^ (row & 7)) << 4);
 }
 
-// Grid (n_splits, bh / hb), THREADS threads.  Writes, for each of its hb
-// heads, the partial (acc[0..D), m, l) of positions [split * split_len,
-// ...) to part[(blockIdx.y * n_splits + split) * hb + head], m in log2
-// units.
+// The consumer warps of a bf16 block: warp w scores positions 16 w .. 16 w
+// + 15 of each of the n_tiles tiles the ring delivers (the first at k_lo),
+// then the warps' partials merge in warp order.  qb: the block's first
+// query head, q_row elements between heads.  Scores of positions >= k_hi
+// get no weight (-inf); positions >= mhi or < mlo are masked with NEG.
+// The result goes to pb, the hb partials (acc[0..D), m, l) with m in log2
+// units, or, when pb is null, normalised to ob (hb rows of D).
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-decode_mma_kernel(const __grid_constant__ CUtensorMap kmap,
-                  const __grid_constant__ CUtensorMap vmap,
-                  const __nv_bfloat16* __restrict__ q,
-                  const int* __restrict__ length, float* __restrict__ part,
-                  int S, int hb, int rep, int split_len, float scale) {
+__device__ __forceinline__ void consume(
+    uint32_t base, uint8_t* sbase, uint32_t full0, uint32_t empty0,
+    const __nv_bfloat16* qb, long long q_row, int hb, int k_lo, int k_hi,
+    int n_tiles, int mlo, int mhi, float scale, float* pb,
+    __nv_bfloat16* ob) {
   constexpr int DP = D < 64 ? 64 : D;
   constexpr int KS = D / 16;             // k-steps of QK^T
   constexpr int NT = D / 8;              // 8-column tiles of the output
   using L = Layout<DP>;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;          // swizzle atoms
-  uint8_t* const sbase = smem_raw + (base - raw);
-  const uint32_t full0 = base + L::BAR_OFF, empty0 = full0 + 8 * STAGES;
-
-  const int split = blockIdx.x, blk = blockIdx.y;
-  const int len = *length;
-  const int valid = len > 0 ? min(len, S) : S;
-  const int k_lo = split * split_len;
-  const int k_hi = min(valid, k_lo + split_len);
-  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + T - 1) / T : 0;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, WARPS);      // one arrive per consumer warp
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= WARPS * 32) {
-    // producer warp: one thread keeps the ring full
-    if (threadIdx.x == WARPS * 32) {
-      const int kvh = blk * hb / rep;
-      for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % STAGES;
-        const uint32_t kt = base + s * L::STAGE_BYTES;
-        const uint32_t vt = kt + L::TILE_BYTES;
-        if (it >= STAGES) mbar_wait(empty0 + 8 * s, ((it / STAGES) - 1) & 1);
-        mbar_expect_tx(full0 + 8 * s, L::STAGE_BYTES);
-        for (int c = 0; c < L::NCH; ++c) {
-          tma_load_3d(kt + c * T * ROW, &kmap, full0 + 8 * s, 64 * c,
-                      k_lo + it * T, kvh);
-          tma_load_3d(vt + c * T * ROW, &vmap, full0 + 8 * s, 64 * c,
-                      k_lo + it * T, kvh);
-        }
-      }
-    }
-    return;
-  }
-
-  // consumers: warp w scores positions 16 w .. 16 w + 15 of each tile
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, tq = lane & 3;
   const float sl2 = scale * 1.4426950408889634f;   // scores in log2 units
-  const __nv_bfloat16* qb = q + (long long)blk * hb * D;
   uint32_t qa[KS][4];
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
     const int c = ks * 16 + 2 * tq;
-    const uint32_t* r0 = reinterpret_cast<const uint32_t*>(qb + g * D + c);
-    const uint32_t* r1 = reinterpret_cast<const uint32_t*>(qb + (g + 8) * D
+    const uint32_t* r0 = reinterpret_cast<const uint32_t*>(qb + g * q_row
                                                            + c);
+    const uint32_t* r1 = reinterpret_cast<const uint32_t*>(
+        qb + (g + 8) * q_row + c);
     qa[ks][0] = g < hb ? r0[0] : 0u;
     qa[ks][1] = g + 8 < hb ? r1[0] : 0u;
     qa[ks][2] = g < hb ? r0[4] : 0u;
@@ -387,7 +386,7 @@ decode_mma_kernel(const __grid_constant__ CUtensorMap kmap,
         const int key = p0 + nt * 8 + 2 * tq + (i & 1);
         float x = sc[nt][i] * sl2;
         if (key >= k_hi) x = -INFINITY;  // outside this split: no weight
-        else if (key >= len) x = NEG;    // masked (only when length <= 0)
+        else if (key >= mhi || key < mlo) x = NEG;   // masked
         sc[nt][i] = x;
       }
       mx0 = fmaxf(mx0, fmaxf(sc[nt][0], sc[nt][1]));
@@ -443,6 +442,7 @@ decode_mma_kernel(const __grid_constant__ CUtensorMap kmap,
   float* ow = reinterpret_cast<float*>(sbase);     // [WARPS][16][D]
   float* mw = ow + WARPS * 16 * D;                   // [WARPS][16]
   float* lw = mw + WARPS * 16;                       // [WARPS][16]
+  float* lsum = lw + WARPS * 16;                     // [16]
   asm volatile("bar.sync 1, %0;\n" :: "n"(WARPS * 32) : "memory");
   if (tq == 0) {
     mw[warp * 16 + g] = m0;
@@ -467,15 +467,6 @@ decode_mma_kernel(const __grid_constant__ CUtensorMap kmap,
     mine[(g + 8) * D + c] = acc[i][2] * w1;
     mine[(g + 8) * D + c + 1] = acc[i][3] * w1;
   }
-  asm volatile("bar.sync 1, %0;\n" :: "n"(WARPS * 32) : "memory");
-  float* pb = part + ((long long)blk * gridDim.x + split) * hb * (D + 2);
-  for (int i = threadIdx.x; i < hb * D; i += WARPS * 32) {
-    const int r = i / D, c = i % D;
-    float a = 0.0f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) a += ow[(w * 16 + r) * D + c];
-    pb[r * (D + 2) + c] = a;
-  }
   if ((int)threadIdx.x < hb) {
     const int r = threadIdx.x;
     float M = NEG, l = 0.0f;
@@ -484,9 +475,155 @@ decode_mma_kernel(const __grid_constant__ CUtensorMap kmap,
 #pragma unroll
     for (int w = 0; w < WARPS; ++w)
       l += lw[w * 16 + r] * ex2(mw[w * 16 + r] - M);
-    pb[r * (D + 2) + D] = M;
-    pb[r * (D + 2) + D + 1] = l;
+    lsum[r] = l;
+    if (pb != nullptr) {
+      pb[r * (D + 2) + D] = M;
+      pb[r * (D + 2) + D + 1] = l;
+    }
   }
+  asm volatile("bar.sync 1, %0;\n" :: "n"(WARPS * 32) : "memory");
+  for (int i = threadIdx.x; i < hb * D; i += WARPS * 32) {
+    const int r = i / D, c = i % D;
+    float a = 0.0f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) a += ow[(w * 16 + r) * D + c];
+    if (pb != nullptr)
+      pb[r * (D + 2) + c] = a;
+    else      // what decode_combine_kernel gives for a single split
+      ob[r * D + c] = __float2bfloat16(a / fmaxf(lsum[r], 1e-30f));
+  }
+}
+
+// Grid (n_splits, bh / hb), THREADS threads.  Writes, for each of its hb
+// heads, the partial (acc[0..D), m, l) of positions [split * split_len,
+// ...) to part[(blockIdx.y * n_splits + split) * hb + head], m in log2
+// units.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+decode_mma_kernel(const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap,
+                  const __nv_bfloat16* __restrict__ q,
+                  const int* __restrict__ length, float* __restrict__ part,
+                  int S, int hb, int rep, int split_len, float scale) {
+  constexpr int DP = D < 64 ? 64 : D;
+  using L = Layout<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  const Ring<DP> ring(smem_raw);
+  const uint32_t base = ring.base, full0 = ring.full0, empty0 = ring.empty0;
+  uint8_t* const sbase = ring.sbase;
+
+  const int split = blockIdx.x, blk = blockIdx.y;
+  const int len = *length;
+  const int valid = len > 0 ? min(len, S) : S;
+  const int k_lo = split * split_len;
+  const int k_hi = min(valid, k_lo + split_len);
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + T - 1) / T : 0;
+
+  if (threadIdx.x >= WARPS * 32) {
+    // producer warp: one thread keeps the ring full
+    if (threadIdx.x == WARPS * 32) {
+      const int kvh = blk * hb / rep;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES;
+        const uint32_t kt = base + s * L::STAGE_BYTES;
+        const uint32_t vt = kt + L::TILE_BYTES;
+        if (it >= STAGES) mbar_wait(empty0 + 8 * s, ((it / STAGES) - 1) & 1);
+        mbar_expect_tx(full0 + 8 * s, L::STAGE_BYTES);
+        for (int c = 0; c < L::NCH; ++c) {
+          tma_load_3d(kt + c * T * ROW, &kmap, full0 + 8 * s, 64 * c,
+                      k_lo + it * T, kvh);
+          tma_load_3d(vt + c * T * ROW, &vmap, full0 + 8 * s, 64 * c,
+                      k_lo + it * T, kvh);
+        }
+      }
+    }
+    return;
+  }
+  // masked past `length` (every position when length <= 0)
+  consume<D>(base, sbase, full0, empty0, q + (long long)blk * hb * D, D, hb,
+             k_lo, k_hi, n_tiles, 0, len, scale,
+             part + ((long long)blk * gridDim.x + split) * hb * (D + 2),
+             nullptr);
+}
+
+// The paged design.  Grid (n_splits, b * H / hb), THREADS threads: block
+// y serves the folded query rows y hb .. y hb + hb - 1 (slot s = y hb / H,
+// query heads from h0 = y hb % H, kv head h0 / rep) over the slot's
+// logical positions [0, S), S = max_blocks * bs.  The slot's positions
+// [lo, hi) are valid: hi = min(length, S), lo = max(0, length - window)
+// with a window, else 0.  The block visits the tiles from the one holding
+// lo up to hi, cut to this split's [split * split_len, ...) -- or, when no
+// position is valid (length <= 0, or the window past S), all of [0, S),
+// every position masked, which gives the mean of v as decode_attend does.
+// Each 64-position tile arrives as 64 / box boxes of box rows (box =
+// gcd(bs, 64) >= 8, so a box is 1024-byte aligned in the swizzled tile
+// and never crosses a pool block), box j from the physical block the
+// slot's table names for its positions; a box past S reads rows of the
+// slot's last block (past the split's end no score gets weight).  The
+// producer warp's lane j reads box j's table entry and starts its loads.
+// With one split the block writes its rows of `out` itself; with more it
+// writes partials to `part` as decode_mma_kernel does.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+paged_decode_kernel(const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __nv_bfloat16* __restrict__ q, long long q_sb,
+                    long long q_sh, const int* __restrict__ tables,
+                    long long t_sb, const long long* __restrict__ lengths,
+                    float* __restrict__ part, __nv_bfloat16* __restrict__ out,
+                    int S, int bs, int box, int H, int hb, int rep,
+                    int window, int split_len, float scale) {
+  constexpr int DP = D < 64 ? 64 : D;
+  using L = Layout<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  const Ring<DP> ring(smem_raw);
+  const uint32_t base = ring.base, full0 = ring.full0, empty0 = ring.empty0;
+  uint8_t* const sbase = ring.sbase;
+
+  const int split = blockIdx.x, blk = blockIdx.y;
+  const int row0 = blk * hb, slot = row0 / H, h0 = row0 % H;
+  const long long len = lengths[slot];
+  const int hi = (int)max(0LL, min(len, (long long)S));
+  const int lo = window > 0 ? (int)max(0LL, min(len - window, (long long)S))
+                            : 0;
+  const int v0 = hi > lo ? lo / T * T : 0, v1 = hi > lo ? hi : S;
+  const int k_lo = max(v0, split * split_len);
+  const int k_hi = min(v1, (split + 1) * split_len);
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + T - 1) / T : 0;
+
+  if (threadIdx.x >= WARPS * 32) {
+    // producer warp: lane j < 64 / box loads box j of each tile
+    const int lane = threadIdx.x % 32, kvh = h0 / rep, n_box = T / box;
+    const int* tab = tables + (long long)slot * t_sb;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % STAGES;
+      const uint32_t kt = base + s * L::STAGE_BYTES;
+      const uint32_t vt = kt + L::TILE_BYTES;
+      int pblk = 0, off = 0;           // read before the wait, to hide it
+      if (lane < n_box) {
+        const int p = min(k_lo + it * T + lane * box, S - box);
+        pblk = tab[p / bs];
+        off = p % bs;
+      }
+      if (it >= STAGES) mbar_wait(empty0 + 8 * s, ((it / STAGES) - 1) & 1);
+      if (lane == 0) mbar_expect_tx(full0 + 8 * s, L::STAGE_BYTES);
+      __syncwarp();
+      if (lane < n_box) {
+        for (int c = 0; c < L::NCH; ++c) {
+          const uint32_t at = c * T * ROW + lane * box * ROW;
+          tma_load_4d(kt + at, &kmap, full0 + 8 * s, 64 * c, kvh, off, pblk);
+          tma_load_4d(vt + at, &vmap, full0 + 8 * s, 64 * c, kvh, off, pblk);
+        }
+      }
+    }
+    return;
+  }
+  consume<D>(base, sbase, full0, empty0, q + slot * q_sb + h0 * q_sh, q_sh,
+             hb, k_lo, k_hi, n_tiles, lo, hi, scale,
+             gridDim.x > 1
+                 ? part + ((long long)blk * gridDim.x + split) * hb * (D + 2)
+                 : nullptr,
+             out + (long long)row0 * D);
 }
 
 }  // namespace dk
@@ -570,6 +707,45 @@ int launch(const void* q, const void* kc, const void* vc, const void* length,
                                  rep, n_splits, split_len, scale, s);
 }
 
+template <int D>
+int launch_paged(const void* q, long long q_sb, long long q_sh,
+                 const void* kp, const void* vp, int n_blocks, int bs, int kv,
+                 long long p_blk, long long p_row, long long p_kv,
+                 const void* tables, long long t_sb, int max_blocks,
+                 const void* lengths, void* part, void* out, int b, int H,
+                 int hb, int rep, int window, int n_splits, int split_len,
+                 float scale, cudaStream_t s) {
+  constexpr int smem = dk::Layout<(D < 64 ? 64 : D)>::ALLOC;
+  const int box = (bs & -bs) < dk::T ? (bs & -bs) : dk::T;  // gcd(bs, 64)
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap km, vm;
+  CUresult r = encode_pool_bf16(&km, fn, kp, n_blocks, bs, kv, D, 2 * p_blk,
+                                2 * p_row, 2 * p_kv, box);
+  if (r == CUDA_SUCCESS)
+    r = encode_pool_bf16(&vm, fn, vp, n_blocks, bs, kv, D, 2 * p_blk,
+                         2 * p_row, 2 * p_kv, box);
+  if (r != CUDA_SUCCESS) return 10000 + (int)r;
+  static unsigned long long attr_set = 0;
+  const int e = allow_smem((const void*)dk::paged_decode_kernel<D>, smem,
+                           &attr_set);
+  if (e != 0) return e;
+  const dim3 grid(n_splits, b * H / hb);
+  dk::paged_decode_kernel<D><<<grid, dk::THREADS, smem, s>>>(
+      km, vm, static_cast<const __nv_bfloat16*>(q), q_sb, q_sh,
+      static_cast<const int*>(tables), t_sb,
+      static_cast<const long long*>(lengths), static_cast<float*>(part),
+      static_cast<__nv_bfloat16*>(out), max_blocks * bs, bs, box, H, hb, rep,
+      window, split_len, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_splits == 1) return (int)err;
+  decode_combine_kernel<__nv_bfloat16, D, true>
+      <<<dim3(b * H / hb, hb), D, 0, s>>>(
+      static_cast<const float*>(part), static_cast<__nv_bfloat16*>(out), hb,
+      n_splits);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  q, out: (bh, 1, d) contiguous;
@@ -602,4 +778,44 @@ extern "C" int decode_attention_launch(const void* q, const void* kc,
                                  S, hb, rep, n_splits, split_len, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Plain C entry point of the paged design (loaded with ctypes).  q: (b, 1,
+// H, d) bf16, element strides q_sb between slots and q_sh between heads
+// (the last dim contiguous, rows 4-byte aligned); kp, vp: the layer's bf16
+// K and V pools (n_blocks, bs, kv, d), element strides p_blk, p_row, p_kv
+// (the last dim contiguous; bases 16-byte aligned, strides multiples of 8
+// elements); tables: (b, max_blocks) int32, t_sb elements between slots;
+// lengths: (b,) int64; out: (b, 1, H, d) bf16, contiguous; part: f32
+// workspace of b * H * n_splits * (d + 2) floats (unused, may be null, at
+// n_splits = 1).  H = rep * kv; hb divides rep (hb <= 16); bs a multiple
+// of 8; window 0 (none) or the number of positions a query sees;
+// split_len a multiple of 64.  Launches on `stream` (one kernel, or two
+// with n_splits > 1) and returns cudaGetLastError() (0 on success), or
+// 10000 + the CUresult when a TMA descriptor cannot be encoded.
+extern "C" int paged_decode_attention_launch(
+    const void* q, long long q_sb, long long q_sh, const void* kp,
+    const void* vp, int n_blocks, int bs, int kv, long long p_blk,
+    long long p_row, long long p_kv, const void* tables, long long t_sb,
+    int max_blocks, const void* lengths, void* part, void* out, int b, int H,
+    int d, int hb, int rep, int window, int n_splits, int split_len,
+    float scale, void* stream) {
+  if (b < 1 || H < 1 || kv < 1 || rep < 1 || H != rep * kv || hb < 1 ||
+      hb > HB_MAX || rep % hb || (long long)b * H / hb > 65535 ||
+      n_blocks < 1 || bs < 8 || bs % 8 || max_blocks < 1 || window < 0 ||
+      n_splits < 1 || split_len < 1 || split_len % TK ||
+      (n_splits > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PAGED_ARGS q, q_sb, q_sh, kp, vp, n_blocks, bs, kv, p_blk, p_row, \
+    p_kv, tables, t_sb, max_blocks, lengths, part, out, b, H, hb, rep,     \
+    window, n_splits, split_len, scale, s
+  switch (d) {
+    case 16: return launch_paged<16>(PAGED_ARGS);
+    case 32: return launch_paged<32>(PAGED_ARGS);
+    case 64: return launch_paged<64>(PAGED_ARGS);
+    case 128: return launch_paged<128>(PAGED_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef PAGED_ARGS
 }

@@ -116,6 +116,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
          "r"(c1), "r"(c2) : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
 // ----------------------------------------------------------------- wgmma --
 
 // wgmma shared-memory descriptor, 128-byte swizzle.  K-major operand:
@@ -225,6 +236,28 @@ inline CUresult encode_heads_bf16(CUtensorMap* map, EncodeTiledFn fn,
   const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// 4-D map of a bf16 block pool (blocks, rows, heads, cols), each stride
+// in bytes and a multiple of 16, cols contiguous: boxes of box_rows rows
+// x 64 columns (128 bytes, 128-byte swizzle) of one head in one block.
+// Columns past `cols` read as zeros.
+inline CUresult encode_pool_bf16(CUtensorMap* map, EncodeTiledFn fn,
+                                 const void* ptr, int blocks, int rows,
+                                 int heads, int cols, long long block_bytes,
+                                 long long row_bytes, long long head_bytes,
+                                 int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)heads,
+                              (cuuint64_t)rows, (cuuint64_t)blocks};
+  const cuuint64_t strides[3] = {(cuuint64_t)head_bytes,
+                                 (cuuint64_t)row_bytes,
+                                 (cuuint64_t)block_bytes};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -6,11 +6,15 @@ before calling their Pallas kernels.  Here the heads are folded without
 the repeat: query head h of batch b becomes row b*H + h and kv head g row
 b*KV + g, and the kernels read kv row (b*H + h) // (H // KV) — the same
 function on fewer bytes.  Each wrapper takes its kernel's plain version
-only for CPU tensors (see the kernel modules).
+only for CPU tensors (see the kernel modules).  `paged_decode_attention`
+(the engine's decode attention over a block pool, which the JAX package
+leaves to XLA) already takes the (b, 1, H, d) layout and is re-exported
+as it is.
 """
 from __future__ import annotations
 
 from .decode_attention import decode_attention as _decode_attention
+from .decode_attention import paged_decode_attention  # noqa: F401
 from .flash_attention import flash_attention as _flash_attention
 from .int8_gemm import int8_gemm
 

@@ -63,6 +63,20 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def block_size_error(block_size: int, device, kv_cache_dtype: str) -> str:
+    """Why traffic mode refuses `--block-size` on `device`, or "": a bf16
+    block pool on the card is read by the paged decode kernel, whose
+    blocks hold a multiple of PAGED_ROWS rows (other caches keep
+    `decode_attend`, which takes any block size)."""
+    from ..kernels.decode_attention import PAGED_ROWS
+    if (torch.device(device).type != "cuda" or kv_cache_dtype != "bfloat16"
+            or block_size % PAGED_ROWS == 0):
+        return ""
+    return (f"--block-size {block_size}: a bfloat16 KV cache on the card is "
+            f"read by the paged decode kernel, whose blocks hold a multiple "
+            f"of {PAGED_ROWS} rows")
+
+
 def steady_decode_tokens_per_s(sessions, prompt, n_tokens: int,
                                repeats: int = 3,
                                warmup: int = 0) -> list[float]:
@@ -193,7 +207,8 @@ def main(argv=None):
                     help="decode slots (the fixed batch size the "
                          "scheduler packs requests into)")
     ap.add_argument("--block-size", type=int, default=8,
-                    help="paged-KV block size in tokens")
+                    help="paged-KV block size in tokens (on the card "
+                         "a multiple of 8 with a bfloat16 KV cache)")
     ap.add_argument("--kv-blocks", type=int, default=None,
                     help="KV pool capacity in blocks (default: full "
                          "provisioning, slots * ceil(max-len/block-"
@@ -217,6 +232,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.adaptive and args.requests <= 0:
         ap.error("--adaptive needs traffic mode (--requests N)")
+    refusal = block_size_error(args.block_size, args.device,
+                               args.kv_cache_dtype)
+    if args.requests > 0 and refusal:
+        ap.error(refusal)
 
     dist.initialize(device=args.device)      # no-op when unconfigured
     cfg = ARCHS[args.arch]

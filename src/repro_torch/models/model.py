@@ -62,8 +62,8 @@ from .. import spans
 from ..configs.base import ModelConfig, RunConfig
 from ..sharding.constraints import (constrain_qkv, constrain_residual,
                                     einsum, gather_fsdp, grad_placed,
-                                    index_copy_, logsumexp, merge_heads,
-                                    pick_last, reduce_partial,
+                                    index_copy_, is_dtensor, logsumexp,
+                                    merge_heads, pick_last, reduce_partial,
                                     replicate_over_model, split_heads)
 from .attention import _gqa_expand, attend, decode_attend
 from .layers import (apply_rope, attn_out_proj, dense_init, dtype_of,
@@ -603,12 +603,29 @@ def _mamba_step(mp, layer, h, cfg: ModelConfig, plan, active):
     return y
 
 
+def paged_kernel_fits(pool, block_tables) -> bool:
+    """Whether an attention slot's decode step attends through the paged
+    flash-decoding kernel (`kernels.ops.paged_decode_attention`), from the
+    kind of cache the step sees: a block pool (`block_tables` given) in
+    bf16 on a card, not a DTensor.  The kernel's wrapper checks its shape
+    contract and raises where a pool does not meet it.  Every other cache
+    keeps `decode_attend`: the int8 pool (its dequant is not fused into
+    the kernel), the contiguous cache, CPU tensors (the tests' and the
+    reference comparisons' bits) and the dry run's meta DTensors.  A cross
+    slot never asks (`_cross_step`)."""
+    return (block_tables is not None and pool.device.type == "cuda"
+            and pool.dtype == torch.bfloat16 and not is_dtensor(pool))
+
+
 def _attn_step(ap, layer, h, pos, pvec, lens, cfg: ModelConfig,
                rc: RunConfig, plan, active, block_tables):
     """An attention slot's decode step: this token's K/V (int8 codes and
     scales with an "int8" cache) written into the layer's contiguous
     cache at `pos`, or into its block pool at each slot's position, then
-    attention over the valid prefix.  Returns the output projection."""
+    attention over the valid prefix: the paged kernel reads a bf16 pool
+    in place where `paged_kernel_fits`, `decode_attend` takes every other
+    cache (a pool through each slot's gathered strip).  Returns the
+    output projection."""
     b = h.shape[0]
     nh, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
     int8_kv = rc.kv_cache_dtype == "int8"
@@ -630,9 +647,10 @@ def _attn_step(ap, layer, h, pos, pvec, lens, cfg: ModelConfig,
                             new.to(layer[key].dtype))
             else:
                 layer[key][:, pos] = new[:, 0].to(layer[key].dtype)
+    kernel = paged_kernel_fits(layer["k"], block_tables)
     with spans.span("attn.gather"):
         strip = layer
-        if block_tables is not None:
+        if block_tables is not None and not kernel:
             strip = {key: _paged_view(layer[key], block_tables)
                      for key in rows}
         if int8_kv:
@@ -641,8 +659,13 @@ def _attn_step(ap, layer, h, pos, pvec, lens, cfg: ModelConfig,
         else:
             kd, vd = strip["k"], strip["v"]
     with spans.span("attn.core"):
-        o = decode_attend(q, kd, vd, lens, window=cfg.sliding_window,
-                          grouped=rc.gqa_einsum)
+        if kernel:
+            from ..kernels import ops as kops
+            o = kops.paged_decode_attention(q, kd, vd, block_tables, lens,
+                                            window=cfg.sliding_window)
+        else:
+            o = decode_attend(q, kd, vd, lens, window=cfg.sliding_window,
+                              grouped=rc.gqa_einsum)
     return attn_out_proj(ap, o.reshape(b, 1, nh * dh), plan)
 
 
@@ -681,7 +704,9 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
         cache row, and their mamba state and conv carry stay as they were;
       * `block_tables` (b, max_blocks) int: K/V live in the block pool of
         `init_paged_cache`; the step scatters one row into each slot's
-        current block and attends over the slot's gathered strip.
+        current block and attends over the slot's positions (a bf16
+        pool on the card through the paged kernel, which reads the pool
+        in place; every other pool through the slot's gathered strip).
         Required whenever `pos` is ragged and the period has an attention
         slot.
 

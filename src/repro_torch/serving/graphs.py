@@ -63,7 +63,8 @@ capture_lock = threading.Lock()
 
 # kernel wrappers (attributes of repro_torch.kernels) whose counters a
 # replay credits
-COUNTED_KERNELS = ("int8_gemm", "flash_attention", "decode_attention")
+COUNTED_KERNELS = ("int8_gemm", "flash_attention", "decode_attention",
+                   "paged_decode_attention")
 
 
 def _wrappers():

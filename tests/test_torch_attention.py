@@ -405,3 +405,244 @@ def test_attention_check_rejects_a_faulty_kernel(fault):
         bad = _renormalised(torch.softmax(s, -1), vr)
     r = flash_attention_check(bad, q, k, v)
     assert r["max_abs_err"] < 0.1 and not r["ok"], r
+
+
+# --- the paged entry: the engine's decode attention over a block pool --------
+
+PAGED_LENGTHS = [0, 1, 15, 16, 17, 511, 512, 600]    # S = 512; 600 > S
+
+
+def _paged(rep, dtype, tables_kind, seed=0, KV=2, d=16, bs=16, mb=32):
+    """q, pools and tables for len(PAGED_LENGTHS) slots at S = mb * bs:
+    the tables a shuffle of the pool's blocks; "aliased": the last slot
+    (inactive in an engine) names the first slot's blocks."""
+    gen = torch.Generator().manual_seed(seed)
+    b = len(PAGED_LENGTHS)
+    n_blocks = b * mb + 5
+    q, kp, vp = (torch.randn(s, generator=gen).to(TORCH[dtype]) for s in (
+        (b, 1, KV * rep, d), (n_blocks, bs, KV, d), (n_blocks, bs, KV, d)))
+    tables = torch.randperm(n_blocks, generator=gen)[:b * mb].view(b, mb)
+    if tables_kind == "aliased":
+        tables[-1] = tables[0]
+    return q, kp, vp, tables.to(torch.int32), torch.tensor(PAGED_LENGTHS)
+
+
+@pytest.mark.parametrize("tables_kind", ["shuffled", "aliased"])
+@pytest.mark.parametrize("rep", [1, 4, 7])
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_paged_plain_equals_decode_attend(dtype, window, rep, tables_kind):
+    """The paged entry's plain version (what it runs on CPU tensors) is
+    `decode_attend` over `_paged_view`'s strips bit for bit, at ragged
+    lengths (0, the edges of a block, S and past S), windowed or not."""
+    from repro_torch.models.model import _paged_view
+    q, kp, vp, tables, lengths = _paged(rep, dtype, tables_kind,
+                                        seed=rep + window)
+    got = ops.paged_decode_attention(q, kp, vp, tables, lengths,
+                                     window=window)
+    want = attention.decode_attend(q, _paged_view(kp, tables),
+                                   _paged_view(vp, tables), lengths,
+                                   window=window)
+    assert got.dtype == q.dtype and torch.equal(got, want)
+
+
+def _refusal(case):
+    """(arguments, keyword arguments, the exception, its message) of one
+    refused call of the paged wrapper."""
+    q, kp, vp, tables, lengths = _paged(4, "bfloat16", "shuffled")
+    cases = {
+        "q-3d": ((q[:, 0], kp, vp, tables, lengths), ValueError,
+                 "q \\(b, 1, H, d\\)"),
+        "head-width": ((q[..., :8], kp, vp, tables, lengths), ValueError,
+                       "head widths"),
+        "heads": ((q[:, :, :3], kp, vp, tables, lengths), ValueError,
+                  "multiple of KV"),
+        "tables-rows": ((q, kp, vp, tables[:3], lengths), ValueError,
+                        "block_tables"),
+        "lengths-shape": ((q, kp, vp, tables, lengths[:, None]), ValueError,
+                          "lengths"),
+        "float-tables": ((q, kp, vp, tables.float(), lengths), TypeError,
+                         "integers"),
+        "int8-pool": ((q, kp.to(torch.int8), vp.to(torch.int8), tables,
+                       lengths), TypeError, "bfloat16"),
+        "mixed-dtype": ((q.float(), kp, vp, tables, lengths), TypeError,
+                        "bfloat16"),
+        "window": ((q, kp, vp, tables, lengths), ValueError, "window"),
+        "devices": ((q, kp.to("meta"), vp, tables, lengths), ValueError,
+                    "share a device"),
+        "autograd": ((q.float().requires_grad_(), kp.float(), vp.float(),
+                      tables, lengths), RuntimeError, "no backward"),
+    }
+    args, exc, match = cases[case]
+    return args, {"window": -1} if case == "window" else {}, exc, match
+
+
+@pytest.mark.parametrize("case", ["q-3d", "head-width", "heads",
+                                  "tables-rows", "lengths-shape",
+                                  "float-tables", "int8-pool", "mixed-dtype",
+                                  "window", "devices", "autograd"])
+def test_paged_wrapper_refuses(case):
+    args, kw, exc, match = _refusal(case)
+    before = ops.paged_decode_attention.launches
+    with pytest.raises(exc, match=match):
+        ops.paged_decode_attention(*args, **kw)
+    assert ops.paged_decode_attention.launches == before
+
+
+def test_paged_wrapper_meta_is_empty_and_cpu_counts_nothing():
+    q, kp, vp, tables, lengths = _paged(7, "bfloat16", "aliased")
+    before = (ops.paged_decode_attention.launches,
+              dict(ops.paged_decode_attention.launches_by_design))
+    meta = ops.paged_decode_attention(*(t.to("meta") for t in (
+        q, kp, vp, tables, lengths)))
+    assert meta.device.type == "meta" and meta.shape == q.shape
+    ops.paged_decode_attention(q, kp, vp, tables, lengths)
+    assert (ops.paged_decode_attention.launches,
+            ops.paged_decode_attention.launches_by_design) == before
+    assert set(before[1]) == {"paged"}
+
+
+class _Card:
+    """A stand-in for a tensor on the card: what the route reads of it."""
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype = shape, dtype
+        self.device = torch.device("cuda")
+
+
+# case -> (pool, dtype, where, tables given, which path, the error the
+# kernel's wrapper then raises, if any)
+_ROUTES = {
+    "paged-bf16": ((64, 16, 4, 128), torch.bfloat16, "card", True, True,
+                   None),
+    "int8-kv": ((64, 16, 4, 128), torch.int8, "card", True, False, None),
+    "contiguous": ((32, 512, 4, 128), torch.bfloat16, "card", False, False,
+                   None),
+    "cpu": ((64, 16, 4, 128), torch.bfloat16, "cpu", True, False, None),
+    "meta": ((64, 16, 4, 128), torch.bfloat16, "meta", True, False, None),
+    "head-width-96": ((64, 16, 4, 96), torch.bfloat16, "card", True, True,
+                      "head widths"),
+    "block-of-4": ((64, 4, 4, 128), torch.bfloat16, "card", True, True,
+                   "multiple of 8"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ROUTES))
+def test_paged_route_predicate(case):
+    """Which path `_attn_step` takes, decided from the kind of cache alone:
+    the paged kernel for a bf16 pool on the card; `decode_attend` for the
+    int8 KV pool, the contiguous cache, CPU and meta tensors.  A bf16 pool
+    on the card that the kernel cannot read (a head width it is not built
+    for, blocks of other than a multiple of 8 rows) takes the kernel route
+    all the same, and the wrapper's card contract refuses it."""
+    from repro_torch.kernels.decode_attention import check_paged_card
+    from repro_torch.models.model import paged_kernel_fits
+    shape, dtype, where, paged, want, error = _ROUTES[case]
+    pool = (_Card(shape, dtype) if where == "card"
+            else torch.zeros(shape, dtype=dtype, device=where))
+    tables = torch.zeros((2, 4), dtype=torch.int32) if paged else None
+    assert paged_kernel_fits(pool, tables) is want
+    if where != "card" or dtype != torch.bfloat16:
+        return
+    q, kp = (torch.zeros(s, dtype=dtype) for s in ((2, 1, 28, shape[-1]),
+                                                   shape))
+    if error is None:
+        check_paged_card(q, kp, kp.clone())
+    else:
+        with pytest.raises(ValueError, match=error):
+            check_paged_card(q, kp, kp.clone())
+
+
+def test_serve_cli_refuses_blocks_the_kernel_cannot_read():
+    """Traffic mode on the card with a bf16 KV cache in blocks of other
+    than a multiple of 8 rows is refused before anything is built; the
+    int8 cache (read by `decode_attend`) and the CPU keep any block
+    size."""
+    from repro_torch.kernels.decode_attention import PAGED_ROWS
+    from repro_torch.launch import serve
+    argv = ["--requests", "2", "--block-size", "4"]
+    with pytest.raises(SystemExit):
+        serve.main(argv + ["--device", "cuda"])
+    assert serve.block_size_error(4, "cuda", "bfloat16")
+    assert serve.block_size_error(4, "cuda:1", "bfloat16")
+    assert not serve.block_size_error(4, "cuda", "int8")
+    assert not serve.block_size_error(4, "cpu", "bfloat16")
+    assert not serve.block_size_error(2 * PAGED_ROWS, "cuda", "bfloat16")
+
+
+# arch, KV cache, paged -> attention slots that take the kernel route
+_STEPS = {
+    "paged-bf16": ("qwen2-7b", "bfloat16", True),
+    "int8-kv": ("qwen2-7b", "int8", True),
+    "contiguous": ("qwen2-7b", "bfloat16", False),
+    "cross": ("llama-3.2-vision-90b", "bfloat16", True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_STEPS))
+def test_attn_step_route(case, monkeypatch):
+    """`decode_step` on the CPU with the route predicate told that the CPU
+    is the card (the wrapper then runs its plain version): the bf16 pool
+    goes through `paged_decode_attention` in every attention slot and
+    gathers no strip, with logits bit for bit those of the plain route;
+    the int8 pool and the contiguous cache never reach it, and a vlm's
+    cross slots never do (only its self-attention slots)."""
+    from repro_torch.configs import ARCHS, RunConfig, reduced
+    from repro_torch.models import (decode_step, init, init_cache,
+                                    init_paged_cache)
+    from repro_torch.models import model as tm
+    arch, kv, paged = _STEPS[case]
+    cfg, rc = reduced(ARCHS[arch]), RunConfig(kv_cache_dtype=kv)
+    params = init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    b, mb, bs = 3, 2, 16
+    n_img = 4 if cfg.family == "vlm" else 0
+
+    def run(kernel_route):
+        calls = {"kernel": 0, "gather": 0}
+        kernel, gather = ops.paged_decode_attention, tm._paged_view
+        inside = []
+
+        def spy_kernel(*a, **kw):      # its plain version gathers: not
+            calls["kernel"] += 1       # the step's own gather
+            inside.append(True)
+            try:
+                return kernel(*a, **kw)
+            finally:
+                inside.pop()
+
+        def spy_gather(*a, **kw):
+            calls["gather"] += not inside
+            return gather(*a, **kw)
+        with monkeypatch.context() as m:
+            m.setattr(ops, "paged_decode_attention", spy_kernel)
+            m.setattr(tm, "_paged_view", spy_gather)
+            if kernel_route:
+                m.setattr(tm, "paged_kernel_fits", lambda pool, bt: (
+                    bt is not None and pool.dtype == torch.bfloat16))
+            tok = torch.tensor([[3], [5], [7]])
+            if paged:
+                cache = init_paged_cache(cfg, rc, b, b * mb, bs,
+                                         device="cpu", n_image_tokens=n_img)
+                tables = torch.arange(b * mb, dtype=torch.int32).view(b, mb)
+                pos = torch.tensor([0, 9, 20], dtype=torch.int32)
+                logits, _ = decode_step(params, cache, tok, pos, cfg, rc,
+                                        active=torch.ones(b, dtype=torch.bool),
+                                        block_tables=tables)
+            else:
+                cache = init_cache(cfg, rc, b, mb * bs, device="cpu")
+                logits, _ = decode_step(params, cache, tok, 9, cfg, rc)
+        return logits, calls
+
+    want, _ = run(False)
+    got, calls = run(True)
+    slots = tm.period_slots(cfg)
+    attn = tm.n_periods(cfg) * sum(s.mixer == "attn" for s in slots)
+    kv_tensors = 4 if kv == "int8" else 2
+    if case in ("paged-bf16", "cross"):
+        assert calls == {"kernel": attn, "gather": 0}
+        assert attn < cfg.n_layers or case == "paged-bf16"
+    elif case == "int8-kv":
+        assert calls == {"kernel": 0, "gather": kv_tensors * attn}
+    else:
+        assert calls == {"kernel": 0, "gather": 0}
+    assert torch.equal(got, want)

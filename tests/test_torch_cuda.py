@@ -46,8 +46,8 @@ from repro_torch.core.vectorized import FLAT_FIELDS
 from repro_torch.kernels import (decode_attention, decode_attention_check,
                                  flash_attention, flash_attention_check,
                                  flash_attention_ref, int8_gemm,
-                                 int8_gemm_ref, ops, sweep_eval,
-                                 sweep_eval_ref)
+                                 int8_gemm_ref, ops, paged_decode_attention,
+                                 sweep_eval, sweep_eval_ref)
 from repro_torch.models import forward, init
 from repro_torch.quant import KernelPlanTable, quantize_model_params
 
@@ -618,6 +618,204 @@ def test_attention_wrappers_reject_bad_inputs(cuda):
                          torch.tensor(5.0, device=cuda))
 
 
+# --- the paged design: the engine's decode attention over the block pool -----
+
+# (b, S, block_size, H, KV, d, window): both engine cells' attention (32
+# slots of 512 positions in blocks of 16; qwen2-7b 28/4, qwen2-moe-a2.7b
+# 16/16, d 128) with and without a window, then edge cases: S not a
+# multiple of 64; few rows over a long S (several splits and the combine
+# kernel, a window across split boundaries); blocks of 8 and 128 rows;
+# head widths 16, 32 and 64
+PAGED_CASES = [(32, 512, 16, 28, 4, 128, 0), (32, 512, 16, 28, 4, 128, 64),
+               (32, 512, 16, 16, 16, 128, 0), (32, 512, 16, 16, 16, 128, 100),
+               (4, 48, 16, 8, 2, 64, 0), (3, 4096, 8, 32, 8, 128, 0),
+               (2, 8192, 64, 8, 1, 32, 300), (2, 512, 128, 4, 4, 16, 0),
+               (4, 256, 32, 32, 32, 64, 0)]
+
+
+def _paged_inputs(case, device, seed=0):
+    """q, shuffled pools with spare blocks, tables (the last slot, idle,
+    aliasing the first one's blocks) and ragged lengths: 0, 1, the edges
+    of a block and of a tile, S and past it, then random ones."""
+    b, S, bs, H, KV, d, window = case
+    mb = S // bs
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    n_blocks = b * mb + 3
+    q, kp, vp = (torch.randn(s, generator=gen).to(torch.bfloat16).to(device)
+                 for s in ((b, 1, H, d), (n_blocks, bs, KV, d),
+                           (n_blocks, bs, KV, d)))
+    tables = torch.randperm(n_blocks, generator=gen)[:b * mb].view(b, mb)
+    if b > 1:
+        tables[-1] = tables[0]
+    edge = [0, 1, 15, 16, 17, 63, 64, 65, S - 1, S, S + 50]
+    rand = torch.randint(1, S + 1, (b,), generator=gen).tolist()
+    lengths = [edge[i] if i < len(edge) else rand[i] for i in range(b)]
+    return (q, kp, vp, tables.to(torch.int32).to(device),
+            torch.tensor(lengths, device=device), window)
+
+
+def _paged_check(got, q, kp, vp, tables, lengths, window) -> dict:
+    """`decode_attention_check` on the folded result: q, the gathered
+    strips and one length per query row."""
+    from repro_torch.models.model import _paged_view
+    kf, vf = (ops.fold(_paged_view(p, tables)) for p in (kp, vp))
+    return decode_attention_check(ops.fold(got), ops.fold(q), kf, vf,
+                                  lengths.repeat_interleave(q.shape[2]),
+                                  window)
+
+
+@pytest.mark.parametrize("case", PAGED_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_paged_kernel_matches_plain(cuda, case):
+    args = _paged_inputs(case, cuda, seed=case[1] + case[3])
+    before = (paged_decode_attention.launches,
+              dict(paged_decode_attention.launches_by_design))
+    got = paged_decode_attention(*args)
+    assert paged_decode_attention.launches == before[0] + 1
+    assert paged_decode_attention.launches_by_design["paged"] == (
+        before[1]["paged"] + 1)
+    _attn_ok(_paged_check(got, *args))
+
+
+@pytest.mark.parametrize("case", PAGED_CASES[:4],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_paged_kernel_repeats_bit_for_bit(cuda, case):
+    """Two calls give equal bits, and a strided q (a view into a wider
+    tensor, as the kernel reads q through its strides) the same bits."""
+    q, *rest = _paged_inputs(case, cuda, seed=7)
+    first = paged_decode_attention(q, *rest)
+    assert torch.equal(first, paged_decode_attention(q, *rest))
+    wide = torch.zeros(q.shape[:2] + (q.shape[2] + 3, q.shape[3]),
+                       dtype=q.dtype, device=cuda)
+    wide[:, :, 3:] = q
+    assert torch.equal(first, paged_decode_attention(wide[:, :, 3:], *rest))
+    assert bool(torch.isfinite(first).all())
+
+
+def test_paged_wrapper_rejects_bad_inputs(cuda):
+    """On CUDA tensors the paged wrapper launches or raises."""
+    q, kp, vp, tables, lengths, _ = _paged_inputs(
+        (2, 64, 16, 4, 2, 32, 0), cuda)
+    with pytest.raises(TypeError):
+        paged_decode_attention(q.float(), kp.float(), vp.float(), tables,
+                               lengths)
+    with pytest.raises(ValueError, match="head widths"):
+        paged_decode_attention(q[..., :24], kp[..., :24], vp[..., :24],
+                               tables, lengths)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        paged_decode_attention(q, kp.view(-1, 4, 2, 32),
+                               vp.view(-1, 4, 2, 32), tables, lengths)
+    with pytest.raises(ValueError, match="share a device"):
+        paged_decode_attention(q, kp, vp, tables.cpu(), lengths)
+
+
+def _attention_layers(cfg) -> int:
+    from repro_torch.models.model import n_periods, period_slots
+    return n_periods(cfg) * sum(s.mixer == "attn" for s in period_slots(cfg))
+
+
+@pytest.mark.parametrize("arch,layers", [("qwen2-7b", 28),
+                                         ("qwen2-moe-a2.7b", 24)])
+def test_captured_step_credits_one_paged_launch_per_layer(cuda, arch, layers,
+                                                          monkeypatch):
+    """The engine cells' step, captured (reduced widths at the cells'
+    depths, 32 slots, blocks of 16): each replay credits exactly one paged
+    launch per attention layer and no other attention kernel, no strip
+    is gathered, and the replay equals the eager step bit for bit."""
+    import dataclasses
+    from repro_torch.models import clone_cache, decode_step, init_paged_cache
+    from repro_torch.models import model as tm
+    from repro_torch.serving import DecodeCore
+    cfg = dataclasses.replace(reduced(ARCHS[arch]), n_layers=layers)
+    assert _attention_layers(cfg) == layers
+    rc = RunConfig()
+    params = init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                  device="cuda")
+    core = DecodeCore(cfg, rc, params, quantize=True, plan_batch=32,
+                      plan_max_len=64, device="cuda")
+
+    def no_gather(*a, **kw):
+        raise AssertionError("the kernel route gathered a strip")
+    monkeypatch.setattr(tm, "_paged_view", no_gather)
+    slots, mb = 32, 4
+    pools = init_paged_cache(cfg, rc, slots, slots * mb, 16, device="cuda")
+    copy = clone_cache(pools)
+    tables = torch.randperm(slots * mb, device="cuda").to(
+        torch.int32).view(slots, mb)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    active = torch.ones(slots, dtype=torch.bool, device="cuda")
+    step = core.batch_step
+    first = paged_decode_attention.launches
+    for t in range(6):
+        tok = torch.randint(0, cfg.vocab, (slots, 1), generator=gen,
+                            device="cuda")
+        pos = (torch.arange(slots, device="cuda") * 7 + t) % (mb * 16)
+        pos = pos.to(torch.int32)
+        if t == 1:      # the first call warmed up, captured and replayed
+            before = (paged_decode_attention.launches,
+                      decode_attention.launches, flash_attention.launches)
+        got, pools = step(pools, tok, pos, active, tables)
+        with torch.inference_mode():
+            want, copy = decode_step(core.params, copy, tok, pos, cfg, rc,
+                                     plan=core.plan_table, active=active,
+                                     block_tables=tables)
+        assert torch.equal(got, want), t
+    assert step.captures == 1
+    # the first call's warm-up and replay (the capture credits nothing),
+    # then the eager step
+    assert before[0] - first == 3 * layers
+    assert (paged_decode_attention.launches - before[0],
+            decode_attention.launches - before[1],
+            flash_attention.launches - before[2]) == (
+        2 * 5 * layers, 0, 0)     # 5 replays + 5 eager steps
+
+
+def test_kernel_route_streams_match_plain_route(cuda, monkeypatch):
+    """Reduced qwen2-7b's paged step over 40 greedy steps at ragged
+    lengths: the kernel route against the eager plain route
+    (`decode_attend` over the gathered strips), both fed the kernel
+    route's greedy tokens: logits within 2**-6 of max|ref| (the model's
+    bf16 tolerance; the two differ in the order of f32 sums and where bf16
+    rounds), and the same greedy token wherever the plain route's top-two
+    gap exceeds twice that."""
+    from repro_torch.models import clone_cache, decode_step, init_paged_cache
+    from repro_torch.models import model as tm
+    cfg, rc, core = _graph_core(cuda)
+    b, mb, bs = 4, 4, 16
+    pools = init_paged_cache(cfg, rc, b, b * mb, bs, device="cuda")
+    plain = clone_cache(pools)
+    tables = torch.arange(b * mb, dtype=torch.int32,
+                          device="cuda").view(b, mb).flip(1)
+    pos0 = torch.tensor([0, 5, 17, 20], dtype=torch.int32, device="cuda")
+    active = torch.ones(b, dtype=torch.bool, device="cuda")
+    tok = torch.tensor([[1], [2], [3], [4]], device="cuda")
+    fits = tm.paged_kernel_fits
+    agree = compared = 0
+    for t in range(40):
+        pos = pos0 + t
+        with torch.inference_mode():
+            before = paged_decode_attention.launches
+            got, pools = decode_step(core.params, pools, tok, pos, cfg, rc,
+                                     plan=core.plan_table, active=active,
+                                     block_tables=tables)
+            assert paged_decode_attention.launches == before + cfg.n_layers
+            monkeypatch.setattr(tm, "paged_kernel_fits",
+                                lambda *a: False)
+            want, plain = decode_step(core.params, plain, tok, pos, cfg, rc,
+                                      plan=core.plan_table, active=active,
+                                      block_tables=tables)
+            monkeypatch.setattr(tm, "paged_kernel_fits", fits)
+        g, w = got.float()[:, 0], want.float()[:, 0]
+        tol = 2.0 ** -6 * w.abs().max().item()
+        assert (g - w).abs().max().item() <= tol, t
+        top2 = w.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        agree += int((g.argmax(-1) == w.argmax(-1))[clear].sum())
+        compared += int(clear.sum())
+        tok = g.argmax(-1, keepdim=True)
+    assert agree == compared and compared > 0
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_prefill_forward_on_card_matches_cpu(cuda, dtype):
     """The reduced qwen2-7b prefill (INT8 params, prefill table forced
@@ -709,7 +907,7 @@ def test_graphed_batch_step_equals_eager(cuda, kv):
     slots writing one row would race in both versions)."""
     from repro_torch.models import clone_cache, decode_step, init_paged_cache
     cfg, rc, core = _graph_core(cuda, kv)
-    pools = init_paged_cache(cfg, rc, 3, 12, 4, device="cuda")
+    pools = init_paged_cache(cfg, rc, 3, 12, 8, device="cuda")
     copy = clone_cache(pools)
     step = core.batch_step
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -765,7 +963,7 @@ def test_engine_captures_once_through_slot_churn(cuda):
     from repro_torch.serving import ContinuousBatchingEngine
     from repro_torch.serving import synthetic_requests
     cfg, _, core = _graph_core(cuda)
-    eng = ContinuousBatchingEngine(core, n_slots=2, max_len=24, block_size=4)
+    eng = ContinuousBatchingEngine(core, n_slots=2, max_len=24, block_size=8)
     streams = []
     for n_req, seed in ((3, 11), (4, 12), (3, 11)):
         eng.run(synthetic_requests(cfg, n_req, seed=seed, prompt_len=(3, 6),
@@ -1064,7 +1262,7 @@ def test_graphed_family_steps_equal_eager(cuda, arch):
     for ours, ref in zip(cache, copy):
         for key in ours:
             assert torch.equal(ours[key], ref[key]), key
-    pools = init_paged_cache(cfg, rc, 3, 12, 4, device="cuda")
+    pools = init_paged_cache(cfg, rc, 3, 12, 8, device="cuda")
     copy = clone_cache(pools)
     tables = torch.tensor([[0, 1, 2], [3, 4, 5], [6, 7, 8]],
                           dtype=torch.int32, device="cuda")
@@ -1100,7 +1298,7 @@ def test_engine_resets_mamba_state_under_the_graph(cuda, arch):
                   device="cuda")
     core = DecodeCore(cfg, RunConfig(), params, quantize=True, plan_batch=8,
                       plan_max_len=24, device="cuda")
-    eng = ContinuousBatchingEngine(core, n_slots=2, max_len=24, block_size=4)
+    eng = ContinuousBatchingEngine(core, n_slots=2, max_len=24, block_size=8)
     ptrs = [t.data_ptr() for e in eng.cache for t in e.values()]
     streams = []
     for _ in range(2):
