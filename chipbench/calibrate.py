@@ -30,12 +30,12 @@ def reading(ctx) -> dict:
     from chipbench.drivers.common import release
     driver = importlib.import_module(f"chipbench.drivers.{ctx.cell['driver']}")
     out = driver.run(ctx)
-    params = weights.make(ctx.model, ctx.seed, ctx.device)
+    params = weights.make(ctx.arch, ctx.model, ctx.seed, ctx.device)
     pick = check.served if out["kind"] == "served" else check.scored
     seqs, reads, chosen = pick(out["samples"], ctx.device)
     t = time.perf_counter()
-    prog, ctl = check.top_gaps(ctx.model, params, seqs, reads, chosen,
-                               control_bits=4)
+    prog, ctl = check.top_gaps(ctx.arch, ctx.model, params, seqs, reads,
+                               chosen, control_bits=4)
     del params
     release()
     q = ctx.cell["check"].get("quantile", 100)
@@ -87,10 +87,11 @@ def main(argv=None) -> int:
     bench = spec.load_benchmark()
     entry = spec.workload(bench, args.workload)
     cell = spec.load_cell(args.workload)
-    model = spec.load_config(bench, entry["config"])["model"]
+    config = spec.load_config(bench, entry["config"])
     for seed in (int(s) for s in args.seeds.split(",")):
         ctx = harness.Ctx(bench=bench, workload=args.workload, cell=cell,
-                          model=model, seed=seed, seconds=args.seconds,
+                          model=config["model"], arch=config["arch"],
+                          seed=seed, seconds=args.seconds,
                           trace=False, device="cuda",
                           t_start=time.perf_counter())
         line = json.dumps({"workload": args.workload, **reading(ctx)})

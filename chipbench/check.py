@@ -19,20 +19,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import reference
+from . import reference, spec
 
 
-def top_gaps(m: dict, params: dict, seqs: list, reads: list,
+def top_gaps(arch: str, m: dict, params: dict, seqs: list, reads: list,
              chosen: list, control_bits: int | None = None):
     """Per sequence, the gap of each read position (float32 numpy) of the
-    tokens `chosen[i]` put first at reads[i]; with `control_bits` also
-    the gaps of the tokens the reference at that precision puts first
-    (else None)."""
-    h8 = reference.final_hidden(m, params, seqs, reads, 8)
-    w8 = reference.head(params, 8)
+    tokens `chosen[i]` put first at reads[i], by the reference of the
+    architecture `arch`; with `control_bits` also the gaps of the tokens
+    the reference at that precision puts first (else None)."""
+    ref = spec.arch(arch)
+    h8 = ref.final_hidden(m, params, seqs, reads, 8)
+    w8 = ref.head(params, 8)
     if control_bits:
-        h_c = reference.final_hidden(m, params, seqs, reads, control_bits)
-        w_c = reference.head(params, control_bits)
+        h_c = ref.final_hidden(m, params, seqs, reads, control_bits)
+        w_c = ref.head(params, control_bits)
     out, ctl = [], []
     for i, h in enumerate(h8):
         parts, cparts = [], []

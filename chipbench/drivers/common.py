@@ -33,11 +33,19 @@ def warm_profiler(device) -> None:
 
 
 def program_config(model: dict):
-    """The program's ModelConfig from a configuration's "model" block."""
-    from repro_torch.configs import ModelConfig, MoEConfig
+    """The program's ModelConfig from a configuration's "model" block:
+    a field given as a dict (moe, ssm, vision, audio, ...) becomes the
+    dataclass that the field's type names."""
+    import dataclasses
+    import typing
+    from repro_torch.configs import ModelConfig
+    hints = typing.get_type_hints(ModelConfig)
     fields = dict(model)
-    if fields.get("moe"):
-        fields["moe"] = MoEConfig(**fields["moe"])
+    for f in dataclasses.fields(ModelConfig):
+        if isinstance(fields.get(f.name), dict):
+            kind = next(t for t in typing.get_args(hints[f.name])
+                        or (hints[f.name],) if dataclasses.is_dataclass(t))
+            fields[f.name] = kind(**fields[f.name])
     return ModelConfig(**fields)
 
 

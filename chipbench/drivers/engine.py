@@ -13,6 +13,12 @@ window goes on submitting the traffic on the host clock and calling
 `step()` until it closes; after each step the host stamps every output
 token that reached it.  Open-loop traffic goes on past the close until
 every request due in the window has its first token.
+
+A traced run arms the program's span recorder (`repro_torch.spans`)
+before the core is built, so that each captured step gets its marked
+twin, and opens it for the `trace_seconds` before the profiler's window:
+the span readers take the sections' device time per step from those
+steps, and the profiler's window sees only plain replays.
 """
 from __future__ import annotations
 
@@ -52,7 +58,7 @@ def build(ctx):
     from repro_torch.serving import DecodeCore
     cell, m = ctx.cell, ctx.model
     cfg, rc = program_config(m), run_config(cell)
-    params = weights.make(m, ctx.seed, ctx.device)
+    params = weights.make(ctx.arch, m, ctx.seed, ctx.device)
     sync(ctx.device)
     log("weights drawn")
     core = DecodeCore(cfg, rc, params, quantize=True,
@@ -82,14 +88,44 @@ def new_engine(ctx, core):
 
 
 def run(ctx) -> dict:
-    core = build(ctx)
-    engine = new_engine(ctx, core)
+    from repro_torch import spans
     if ctx.trace:
-        warm_profiler(ctx.device)
-    out = window(ctx, engine, ctx.cell["traffic"])
+        spans.arm(ctx.device)
+    try:
+        core = build(ctx)
+        engine = new_engine(ctx, core)
+        if ctx.trace:
+            warm_profiler(ctx.device)
+        out = window(ctx, engine, ctx.cell["traffic"])
+    finally:
+        if spans.recorder() is not None:
+            spans.disarm()
     del engine, core
     release()
     return out
+
+
+class SpanWindow:
+    """The armed span recorder, open from `start_at` until `stop_at` on
+    the host clock, opened and closed between engine steps; `steps` is
+    the number of steps it was open for, once it has closed."""
+
+    def __init__(self, recorder, start_at: float, stop_at: float):
+        self.rec = recorder
+        self.start_at, self.stop_at = start_at, stop_at
+        self.opened_at_step = None
+        self.steps = None
+
+    def poll(self, now: float, engine_steps: int) -> None:
+        if self.steps is not None:
+            return
+        if self.opened_at_step is None:
+            if self.start_at <= now < self.stop_at:
+                self.rec.open()
+                self.opened_at_step = engine_steps
+        elif now >= self.stop_at:
+            self.rec.close()
+            self.steps = engine_steps - self.opened_at_step
 
 
 def _positions(engine, reqs: list) -> list[int]:
@@ -110,6 +146,7 @@ def window(ctx, engine, spec: dict) -> dict:
     set-up, then the window; returns the record, the sampled (prompt,
     served tokens) pairs and their kind.  The caller frees the engine
     afterwards."""
+    from repro_torch import spans
     from repro_torch.kernels import int8_gemm
     from repro_torch.serving.scheduler import Request
 
@@ -197,15 +234,21 @@ def window(ctx, engine, spec: dict) -> dict:
 
     t0 = tq = time.perf_counter()
     t1 = t0 + ctx.seconds
-    tw = None
+    tw = sw = None
     if ctx.trace:
         span = min(ctx.seconds, cell["trace_seconds"])
         start = t0 + (ctx.seconds - span) / 2
         tw = TraceWindow(dev, start, start + span)
+        if spans.recorder() is not None:
+            # closed where the profiler's window opens, so that no
+            # marked step falls inside it
+            sw = SpanWindow(spans.recorder(), start - span, start)
     span_marks = {}
 
     while time.perf_counter() < t1:
         t = tick()
+        if sw is not None:
+            sw.poll(t, engine.steps)
         if tw is not None:
             mark = tw.poll(t)
             if mark:
@@ -250,6 +293,9 @@ def window(ctx, engine, spec: dict) -> dict:
                 calls.append([label, n_slots, c * n])
         rec["trace"] = {"window": tw, "steps": s1 - s0, "gemm_calls": calls,
                         "gemm_launches": l1 - l0}
+        if sw is not None and sw.steps is not None:
+            rec["trace"]["spans"] = {"steps": sw.steps,
+                                     "seconds": spans.disarm()}
     return {"record": rec, "samples": _sample(served, ctx, cell),
             "kind": "served"}
 

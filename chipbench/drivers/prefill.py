@@ -30,7 +30,7 @@ def run(ctx) -> dict:
     cell, m, dev = ctx.cell, ctx.model, ctx.device
     cfg, rc = program_config(m), run_config(cell)
     spec = cell["traffic"]
-    params = weights.make(m, ctx.seed, dev)
+    params = weights.make(ctx.arch, m, ctx.seed, dev)
     sync(dev)
     log("weights drawn")
     core = DecodeCore(cfg, rc, params, quantize=True, plan_batch=1,

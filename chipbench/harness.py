@@ -22,7 +22,8 @@ class Ctx:
     bench: dict
     workload: str
     cell: dict
-    model: dict
+    model: dict             # the configuration's "model" block
+    arch: str               # and its "arch" (chipbench/archs/<arch>.py)
     seed: int
     seconds: float
     trace: bool
@@ -40,14 +41,19 @@ def read_trace(tr: dict) -> None:
     stamps = [s[1] for s in dev + host] + [s[2] for s in dev + host]
     lo, hi = (min(stamps), max(stamps)) if stamps else (0.0, 0.0)
     tr["breakdown"] = trace.breakdown(dev, host, lo, hi)
+    # what the span readers take (chipbench/span_readers.py)
+    tr["forward_spans"] = [[a, b] for name, a, b in host
+                           if name == "prefill.forward"]
+    tr["device"] = [[a, b] for _, a, b in dev]
 
 
 def judge(ctx: Ctx, kind: str, samples: list) -> dict:
     """The reference over the window's sampled outputs."""
-    params = weights.make(ctx.model, ctx.seed, ctx.device)
+    params = weights.make(ctx.arch, ctx.model, ctx.seed, ctx.device)
     pick = check.served if kind == "served" else check.scored
     seqs, reads, chosen = pick(samples, ctx.device)
-    gaps, _ = check.top_gaps(ctx.model, params, seqs, reads, chosen)
+    gaps, _ = check.top_gaps(ctx.arch, ctx.model, params, seqs, reads,
+                             chosen)
     del params
     release()
     return check.verdict(gaps, ctx.cell["check"])
@@ -58,8 +64,8 @@ def run(ctx: Ctx) -> dict:
     out = driver.run(ctx)
     rec = out["record"]
     rec["setup_s"] = rec["t0"] - ctx.t_start
-    rec["model"], rec["cell"], rec["seconds"] = ctx.model, ctx.cell, \
-        ctx.seconds
+    rec["model"], rec["arch"], rec["cell"], rec["seconds"] = \
+        ctx.model, ctx.arch, ctx.cell, ctx.seconds
     log(f"window closed; set-up {rec['setup_s']:.3f} s")
     if "trace" in rec:
         read_trace(rec["trace"])

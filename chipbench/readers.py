@@ -2,7 +2,12 @@
 `metrics/`; these take the run record a driver filled)."""
 from __future__ import annotations
 
-from . import flops, window
+from . import flops, spec, window
+
+
+def arch(run: dict):
+    """The module of the run's architecture (its operation counts)."""
+    return spec.arch(run["arch"])
 
 
 def first_token(run: dict) -> list:
@@ -26,7 +31,7 @@ def gemm_roofline(run: dict) -> float | None:
     calls = tr["gemm_calls"]
     if sum(c for _, _, c in calls) != tr["gemm_launches"]:
         return None
-    shapes = flops.projection_shapes(run["model"])
+    shapes = arch(run).projection_shapes(run["model"])
     bound = sum(c * flops.bound_s(*flops.gemm_call(rows, shapes[label][0],
                                                    shapes[label][1]))
                 for label, rows, c in calls)
@@ -41,10 +46,8 @@ def flash_roofline(run: dict) -> float | None:
     calls = tr["flash_calls"]
     if sum(c for _, c in calls) != tr["flash_launches"]:
         return None
-    m = run["model"]
-    bound = sum(c * flops.bound_s(*flops.flash_call(
-        n, m["n_heads"], m["n_kv_heads"], flops.head_dim(m)))
-        for n, c in calls)
+    call = arch(run).flash_call
+    bound = sum(c * flops.bound_s(*call(run["model"], n)) for n, c in calls)
     busy = kernel_seconds(run, "flash_")
     return 100.0 * bound / busy if busy > 0 and bound > 0 else None
 

@@ -61,7 +61,8 @@ def main(argv=None) -> int:
     import repro_torch  # noqa: F401  (the program: absent, no result)
 
     ctx = harness.Ctx(bench=bench, workload=args.workload, cell=cell,
-                      model=config["model"], seed=args.seed,
+                      model=config["model"], arch=config["arch"],
+                      seed=args.seed,
                       seconds=args.seconds, trace=bool(args.trace),
                       device="cuda", t_start=T_START)
     result = harness.run(ctx)

@@ -4,12 +4,18 @@ own that nothing else needs to list:
 
   chipbench/cells/<cell>.json      what the cell runs: its driver, sizes,
                                    traffic and the limits of its check
-  <configs[i].file>                a configuration (chipbench/configs/)
+  <configs[i].file>                a configuration (chipbench/configs/):
+                                   its "model" block goes to the program,
+                                   its "arch" names the architecture
+  chipbench/archs/<arch>.py        an architecture: weight layout, plain
+                                   reference, operation counts
+                                   (chipbench/archs/__init__.py)
   chipbench/metrics/<metric>.py    a metric's reader: read(run) -> number
                                    or None (nothing to read)
 """
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 from pathlib import Path
@@ -37,8 +43,24 @@ def load_cell(name: str, here: Path = HERE) -> dict:
 def load_config(bench: dict, name: str, root: Path = ROOT) -> dict:
     for c in bench["configs"]:
         if c["name"] == name:
-            return json.loads((root / c["file"]).read_text())
+            config = json.loads((root / c["file"]).read_text())
+            if "arch" not in config:
+                raise KeyError(f"{c['file']} has no \"arch\" naming its "
+                               "chipbench/archs/<arch>.py")
+            return config
     raise KeyError(f"no configuration {name!r} in BENCHMARK.json")
+
+
+def arch(name: str, here: Path = HERE):
+    """The module chipbench/archs/<name>.py: what the harness knows of
+    the architecture a configuration's "arch" names."""
+    path = here / "archs" / f"{name}.py"
+    if not name.isidentifier() or not path.is_file():
+        raise FileNotFoundError(
+            f"architecture {name!r}: no module "
+            f"{path.relative_to(here.parent)} (a configuration's \"arch\" "
+            "names a file of chipbench/archs/)")
+    return importlib.import_module(f"chipbench.archs.{name}")
 
 
 def metrics_of(bench: dict, cell: str, trace: bool) -> list[dict]:

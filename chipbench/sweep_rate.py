@@ -64,9 +64,10 @@ def main(argv=None) -> int:
     # no serving past the close: a rate above the knee would run on to
     # the cap; TTFT here is cut at the close (a lower bound)
     cell = dict(spec.load_cell(args.workload), extend_s=0)
-    model = spec.load_config(bench, entry["config"])["model"]
+    config = spec.load_config(bench, entry["config"])
     ctx = harness.Ctx(bench=bench, workload=args.workload, cell=cell,
-                      model=model, seed=args.seed, seconds=args.seconds,
+                      model=config["model"], arch=config["arch"],
+                      seed=args.seed, seconds=args.seconds,
                       trace=False, device="cuda",
                       t_start=time.perf_counter())
     core = drv.build(ctx)

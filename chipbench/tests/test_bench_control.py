@@ -19,10 +19,10 @@ CELLS = ["qwen2-7b.chat-poisson", "qwen2-moe-a2.7b.chat-backlog",
          "qwen2-7b.score-prefill"]
 
 
-def _ctx(cell, model, seed, seconds, device, workload="x"):
+def _ctx(cell, model, seed, seconds, device, workload="x", arch=tiny.ARCH):
     return harness.Ctx(bench=spec.load_benchmark(), workload=workload,
-                       cell=cell, model=model, seed=seed, seconds=seconds,
-                       trace=False, device=device,
+                       cell=cell, model=model, arch=arch, seed=seed,
+                       seconds=seconds, trace=False, device=device,
                        t_start=time.perf_counter())
 
 
@@ -41,8 +41,8 @@ def test_control_fails_where_the_program_holds(workload):
     bench = spec.load_benchmark()
     entry = spec.workload(bench, workload)
     cell = spec.load_cell(workload)
-    model = spec.load_config(bench, entry["config"])["model"]
-    r = calibrate.reading(_ctx(cell, model, 2 ** 31 + 99, 20.0, "cuda",
-                               workload))
+    config = spec.load_config(bench, entry["config"])
+    r = calibrate.reading(_ctx(cell, config["model"], 2 ** 31 + 99, 20.0,
+                               "cuda", workload, config["arch"]))
     assert (r["program_compared"] <= cell["check"]["limit"]
             < r["control_compared"]), r

@@ -13,6 +13,7 @@ from chipbench import flops, spec, trace
 from chipbench.drivers.common import program_config
 
 CONFIGS = ["qwen2-7b", "qwen2-moe-a2.7b"]
+QWEN2 = spec.arch("qwen2")
 
 
 def _model(name):
@@ -33,12 +34,23 @@ def test_config_is_the_registry_entry(name):
     assert program_config(_model(name)) == want
 
 
+@pytest.mark.parametrize("name", ["musicgen-large", "mamba2-780m",
+                                  "llama-3.2-vision-90b",
+                                  "jamba-1.5-large-398b"])
+def test_every_sub_config_is_built(name):
+    """A "model" block with the registry entry's sub-configs as dicts
+    (audio, ssm, vision, moe) gives the entry back."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    assert program_config(dataclasses.asdict(ARCHS[name])) == ARCHS[name]
+
+
 @pytest.mark.parametrize("name", CONFIGS)
 def test_matmul_params_are_the_active_params(name):
     from repro_torch.configs import ARCHS
     cfg = ARCHS[name]
     # roofline's active count holds the embedding, a gather
-    assert flops.matmul_params_per_token(_model(name)) == (
+    assert QWEN2.matmul_params_per_token(_model(name)) == (
         cfg.active_param_count() - cfg.vocab * cfg.d_model)
 
 
@@ -48,23 +60,23 @@ def test_attention_operations_are_the_roofline_ones(name):
     from repro_torch.launch import roofline
     cfg, m = ARCHS[name], _model(name)
     # decode: one query against a cache of S keys
-    assert flops.attention_flops(m, 4096) == roofline._decode_attn_flops(
+    assert QWEN2.attention_flops(m, 4096) == roofline._decode_attn_flops(
         cfg, 4096, 1)
     # prefill: roofline counts s^2 / 2 pairs, the causal count is
     # s (s + 1) / 2: they differ by the diagonal
     s = 2048
-    ours = flops.positions_flops(m, 0, s, 0) - 2.0 * s * (
-        flops.matmul_params_per_token(m))
-    diag = 4.0 * m["n_layers"] * m["n_heads"] * flops.head_dim(m) * s / 2
+    ours = QWEN2.positions_flops(m, 0, s, 0) - 2.0 * s * (
+        QWEN2.matmul_params_per_token(m))
+    diag = 4.0 * m["n_layers"] * m["n_heads"] * QWEN2.head_dim(m) * s / 2
     assert ours == pytest.approx(roofline._attn_flops(cfg, s, 1, True)
                                  + diag)
 
 
 def test_positions_sum_one_by_one():
     m = _model("qwen2-7b")
-    total = sum(2.0 * flops.matmul_params_per_token(m, p >= 63)
-                + flops.attention_flops(m, p + 1) for p in range(40, 200))
-    assert flops.positions_flops(m, 40, 200, 63) == pytest.approx(total)
+    total = sum(2.0 * QWEN2.matmul_params_per_token(m, p >= 63)
+                + QWEN2.attention_flops(m, p + 1) for p in range(40, 200))
+    assert QWEN2.positions_flops(m, 40, 200, 63) == pytest.approx(total)
 
 
 def _smoke():

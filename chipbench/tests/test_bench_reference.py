@@ -5,9 +5,11 @@ Also the benchmark's weights against the layout of the port's `init`."""
 import pytest
 import torch
 
-from chipbench import reference, weights
+from chipbench import reference, spec, weights
 from chipbench.drivers.common import program_config
 from chipbench.tests import tiny
+
+ARCH = spec.arch(tiny.ARCH)
 
 
 def _f32(model):
@@ -33,10 +35,10 @@ def _layout(tree, path=""):
 def test_weights_have_the_programs_layout(model):
     from repro_torch.models import init
     cfg = program_config(model)
-    ours = weights.make(model, 5, "cpu")
+    ours = weights.make(tiny.ARCH, model, 5, "cpu")
     theirs = init(torch.Generator().manual_seed(0), cfg, device="cpu")
     assert _layout(ours) == _layout(theirs)
-    again = weights.make(model, 5, "cpu")
+    again = weights.make(tiny.ARCH, model, 5, "cpu")
     assert all(torch.equal(a, b) for a, b in
                zip(_leaves(ours), _leaves(again)))
 
@@ -59,7 +61,7 @@ def test_reference_matches_the_port_in_f32(model):
     from repro_torch.models import forward
     from repro_torch.quant import quantize_model_params
     m = _f32(model)
-    params = weights.make(m, 11, "cpu")
+    params = weights.make(tiny.ARCH, m, 11, "cpu")
 
     def walk(t):
         if isinstance(t, dict):
@@ -74,9 +76,8 @@ def test_reference_matches_the_port_in_f32(model):
     with torch.inference_mode():
         want, _ = forward(quantize_model_params(f32), tokens, cfg,
                           RunConfig(attn_impl="naive", remat=False))
-    h = reference.final_hidden(m, params, [tokens[0]],
-                               [torch.arange(8)], 8)[0]
-    got = h @ reference.head(params, 8)
+    h = ARCH.final_hidden(m, params, [tokens[0]], [torch.arange(8)], 8)[0]
+    got = h @ ARCH.head(params, 8)
     err = (got - want[0]).abs().max().item()
     assert err <= 1e-4 * want.abs().max().item(), err
 

@@ -65,3 +65,67 @@ def test_prefill_forward_idle_counts_a_forward_with_no_gap():
     run = {"trace": {"forward_spans": [[10.0, 50.0]],
                      "device": [[0.0, 30.0], [30.0, 70.0]]}}
     assert spec.reader("prefill_forward_idle_ms")(run) == 0.0
+
+
+class _Recorder:
+    def __init__(self):
+        self.calls = []
+
+    def open(self):
+        self.calls.append("open")
+
+    def close(self):
+        self.calls.append("close")
+
+
+def test_span_window_opens_and_closes_between_steps():
+    from chipbench.drivers.engine import SpanWindow
+    rec = _Recorder()
+    sw = SpanWindow(rec, 1.0, 2.0)
+    for now, steps in ((0.5, 1), (1.0, 3), (1.5, 6), (2.0, 10), (2.5, 12)):
+        sw.poll(now, steps)
+    assert rec.calls == ["open", "close"] and sw.steps == 7
+    # a step that spans the whole span window: it never opens
+    late = SpanWindow(_Recorder(), 1.0, 2.0)
+    late.poll(0.5, 1)
+    late.poll(2.2, 2)
+    assert late.rec.calls == [] and late.steps is None
+
+
+def test_traced_engine_run_reads_the_spans():
+    """A traced run of the MoE cell on the CPU (the program marks on the
+    host clock there): the span window's sections reach the readers, and
+    the recorder is disarmed after the run; an untraced run arms none."""
+    from repro_torch import spans
+    from chipbench.tests import tiny
+    cell = tiny.engine_cell("qwen2-moe-a2.7b.chat-backlog")
+    r = tiny.run(cell, tiny.MOE, seconds=1.5, trace=True,
+                 workload="qwen2-moe-a2.7b.chat-backlog")
+    assert spans.recorder() is None
+    for name in ("decode_attention_ms", "decode_proj_ms", "moe_experts_ms"):
+        assert r["metrics"][name]["value"] > 0, name
+        assert r["metrics"][name]["unit"] == "ms/step"
+    r = tiny.run(cell, tiny.MOE, seconds=1.0,
+                 workload="qwen2-moe-a2.7b.chat-backlog")
+    assert spans.recorder() is None
+    assert "decode_attention_ms" not in r["metrics"]
+
+
+def test_traced_prefill_run_carries_the_forward_ranges():
+    """A traced prefill run hands the span readers each forward's host
+    range and the device's activities (none on the CPU)."""
+    import time
+    from chipbench import harness
+    from chipbench.drivers import prefill
+    from chipbench.tests import tiny
+    ctx = harness.Ctx(bench=spec.load_benchmark(),
+                      workload="qwen2-7b.score-prefill",
+                      cell=tiny.prefill_cell(), model=tiny.DENSE,
+                      arch=tiny.ARCH, seed=9, seconds=1.5, trace=True,
+                      device="cpu", t_start=time.perf_counter())
+    tr = prefill.run(ctx)["record"]["trace"]
+    harness.read_trace(tr)
+    assert tr["forwards"] > 0
+    assert len(tr["forward_spans"]) >= tr["forwards"]
+    assert all(b > a for a, b in tr["forward_spans"])
+    assert tr["device"] == []

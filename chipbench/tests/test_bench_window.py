@@ -59,7 +59,7 @@ def test_window_opens_on_a_running_batch():
     cell["warm_s"] = 1.0
     ctx = harness.Ctx(bench=spec.load_benchmark(),
                       workload="qwen2-moe-a2.7b.chat-backlog", cell=cell,
-                      model=tiny.DENSE, seed=5, seconds=1.0, trace=False,
+                      model=tiny.DENSE, arch=tiny.ARCH, seed=5, seconds=1.0, trace=False,
                       device="cpu", t_start=0.0)
     rec = engine.run(ctx)["record"]
     t0 = rec["t0"]

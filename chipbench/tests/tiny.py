@@ -1,4 +1,5 @@
-"""Tiny configurations and cells for running the harness on the CPU."""
+"""Tiny configurations and cells for running the harness on the CPU
+(both of the architecture `ARCH`)."""
 from __future__ import annotations
 
 import copy
@@ -6,6 +7,7 @@ import time
 
 from chipbench import harness, spec
 
+ARCH = "qwen2"
 DENSE = {"name": "tiny-dense", "family": "dense", "n_layers": 2,
          "d_model": 64, "n_heads": 4, "n_kv_heads": 2, "d_ff": 128,
          "vocab": 256, "d_head": 16, "qkv_bias": True,
@@ -51,6 +53,7 @@ def prefill_cell() -> dict:
 def run(cell: dict, model: dict, seed: int = 7, seconds: float = 2.0,
         trace: bool = False, workload: str = "qwen2-7b.chat-poisson"):
     ctx = harness.Ctx(bench=spec.load_benchmark(), workload=workload,
-                      cell=cell, model=model, seed=seed, seconds=seconds,
+                      cell=cell, model=model, arch=ARCH, seed=seed,
+                      seconds=seconds,
                       trace=trace, device="cpu", t_start=time.perf_counter())
     return harness.run(ctx)

@@ -2,21 +2,22 @@
 sides: the program quantizes them itself, the reference works its own
 INT8 weights out from them.
 
-Each stacked leaf is drawn whole, in the dtype the program takes it
-(bf16; the MoE router f32), by one `torch.randn` on the device from a
-generator of its own, seeded from the run's seed and the leaf's path, and
-scaled in place: a leaf can be drawn again alone, and the same seed gives
-the same weights.  The tree has the program's layout (`repro_torch.models
-.init`: one entry per slot of the period, each leaf stacked over the
-layers) and the program's scales (projections 1 / sqrt(fan-in), embedding
-and head 0.02); norm scales are 1 + 0.1 N(0, 1) and the attention biases
-0.1 N(0, 1), so that neither is an identity.
+Each stacked leaf is drawn whole, in the dtype the program takes it, by
+one `torch.randn` on the device from a generator of its own, seeded from
+the run's seed and the leaf's path, and scaled and shifted in place: a
+leaf can be drawn again alone, and the same seed gives the same weights.
+The architecture's module (`chipbench/archs/<arch>.py: leaf_specs`)
+lists the leaves, their shapes, dtypes and scales; the tree has the
+program's layout (`repro_torch.models.init`: one entry per slot of the
+period under "slots", each leaf stacked over the layers).
 """
 from __future__ import annotations
 
 import zlib
 
 import torch
+
+from . import spec
 
 BF16 = torch.bfloat16
 
@@ -36,56 +37,11 @@ def draw(seed: int, path: str, shape, device, dtype=BF16, scale=1.0,
     return t
 
 
-def leaf_specs(m: dict) -> list[tuple[str, tuple, torch.dtype, float, float]]:
-    """(path, shape, dtype, scale, shift) of every leaf, paths written as
-    the keys from the root joined by "/" (slot 0 of the period: "slots/0")."""
-    d, V, L = m["d_model"], m["vocab"], m["n_layers"]
-    H, KV = m["n_heads"], m["n_kv_heads"]
-    dh = m.get("d_head") or d // H
-    specs = [("embed", (V, d), BF16, 0.02, 0.0),
-             ("lm_head", (d, V), BF16, 0.02, 0.0),
-             ("final_norm/scale", (d,), BF16, 0.1, 1.0)]
-    s = "slots/0/"
-    specs += [(s + "norm1/scale", (L, d), BF16, 0.1, 1.0),
-              (s + "attn/wq", (L, d, H * dh), BF16, d ** -0.5, 0.0),
-              (s + "attn/wk", (L, d, KV * dh), BF16, d ** -0.5, 0.0),
-              (s + "attn/wv", (L, d, KV * dh), BF16, d ** -0.5, 0.0),
-              (s + "attn/wo", (L, H * dh, d), BF16, (H * dh) ** -0.5, 0.0)]
-    if m.get("qkv_bias"):
-        specs += [(s + "attn/bq", (L, H * dh), BF16, 0.1, 0.0),
-                  (s + "attn/bk", (L, KV * dh), BF16, 0.1, 0.0),
-                  (s + "attn/bv", (L, KV * dh), BF16, 0.1, 0.0)]
-    specs.append((s + "norm2/scale", (L, d), BF16, 0.1, 1.0))
-    moe = m.get("moe")
-    if moe:
-        E, f = moe["n_experts"], moe["expert_d_ff"]
-        specs += [(s + "moe/router", (L, d, E), torch.float32, d ** -0.5, 0.0),
-                  (s + "moe/w_gate", (L, E, d, f), BF16, d ** -0.5, 0.0),
-                  (s + "moe/w_up", (L, E, d, f), BF16, d ** -0.5, 0.0),
-                  (s + "moe/w_down", (L, E, f, d), BF16, f ** -0.5, 0.0)]
-        if moe["n_shared_experts"]:
-            sf = moe["shared_d_ff"]
-            specs += [(s + "moe/shared/w_gate", (L, d, sf), BF16, d ** -0.5,
-                       0.0),
-                      (s + "moe/shared/w_up", (L, d, sf), BF16, d ** -0.5,
-                       0.0),
-                      (s + "moe/shared/w_down", (L, sf, d), BF16,
-                       sf ** -0.5, 0.0)]
-    else:
-        f = m["d_ff"]
-        specs += [(s + "mlp/w_gate", (L, d, f), BF16, d ** -0.5, 0.0),
-                  (s + "mlp/w_up", (L, d, f), BF16, d ** -0.5, 0.0),
-                  (s + "mlp/w_down", (L, f, d), BF16, f ** -0.5, 0.0)]
-    return specs
-
-
-def make(m: dict, seed: int, device) -> dict:
-    """The whole tree, in the program's layout."""
-    if m["family"] not in ("dense", "moe"):
-        raise ValueError(f"weights for family {m['family']!r} are not "
-                         "written yet")
+def make(arch: str, m: dict, seed: int, device) -> dict:
+    """The whole tree of the architecture `arch`'s leaves (its
+    `leaf_specs`), in the program's layout."""
     tree: dict = {"slots": [{}]}
-    for path, shape, dtype, scale, shift in leaf_specs(m):
+    for path, shape, dtype, scale, shift in spec.arch(arch).leaf_specs(m):
         keys = path.split("/")
         node = tree
         if keys[0] == "slots":
