@@ -271,7 +271,16 @@ compressed all-reduce).  In order it:
    the dry run's argument + temp bytes beside the step's
    `torch.cuda.max_memory_allocated`, and the `Roofline` bound of the dry
    run's counts beside the measured ms/step;
-33. prints one JSON line of kernel numbers, the card line, and last
+33. holds the paged MLA decode kernel (`mla_phase()`): at the
+   moonlight-16b-a3b cell's shape (128 slots x 512 positions in blocks of
+   16, 16 heads, rows of 576) at ragged chat lengths and with every slot
+   at 512, element by element against its plain version and against
+   `paged_mla_decode_ref`, timed beside the plain version and SDPA over
+   the gathered strips; then moonlight-16b-a3b at full size (INT8, 128
+   slots) through the continuous engine, its captured steps crediting one
+   MLA launch per layer a step and no other attention kernel.
+   `python3 chip_smoke.py --mla` runs this phase alone;
+34. prints one JSON line of kernel numbers, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Phase 9 also holds the graphs: the serve's steps replay CUDA graphs
@@ -297,7 +306,8 @@ report; the qwen2-7b,
 qwen2-moe-a2.7b, musicgen-large and vlm prefill forwards for
 flash_attention; one call of the public wrapper for decode_attention;
 phase 16 (a)'s engine run and the families' engine runs for
-paged_decode_attention), counted from 0 just before that path ran.
+paged_decode_attention; phase 33's engine run for paged_mla_decode),
+counted from 0 just before that path ran.
 
 Any failed phase raises and exits non-zero; so does a machine with no
 CUDA device or a directory without the port.
@@ -1787,6 +1797,223 @@ def families(torch, card: str) -> list[dict]:
     return out
 
 
+# --- the paged MLA decode kernel (phase 33) -----------------------------------
+
+MLA_ARCH = "moonlight-16b-a3b"
+# the cell's latent attention: (slots, positions, block size, heads)
+MLA_CASE = (128, 512, 16, 16)
+MLA_REQUESTS = 128
+
+
+def mla_inputs(torch, full: bool, seed: int):
+    """q (b, H, 576), a latent pool of b * S / bs blocks shuffled among
+    the slots, int32 tables and int64 lengths at MLA_CASE: ragged (0, 1,
+    the edges of a tile and a block, S - 1, S, then chat-like lengths,
+    log-normal around 170 positions), or every slot at S."""
+    b, S, bs, H = MLA_CASE
+    mb = S // bs
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, pool = (torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for shape in ((b, H, 576), (b * mb, bs, 576)))
+    tables = torch.randperm(b * mb, generator=gen, device="cuda").to(
+        torch.int32).view(b, mb)
+    lengths = (170 * torch.exp(torch.randn(b, generator=gen, device="cuda"))
+               ).clamp(8, S).long()
+    if full:
+        lengths.fill_(S)
+    else:
+        edge = [0, 1, 31, 32, 33, bs, S - 1, S]
+        lengths[:len(edge)] = torch.tensor(edge, device="cuda")
+    return q, pool, tables, lengths, 192 ** -0.5
+
+
+def time_mla(torch, mla_mod, full: bool) -> dict:
+    """paged_mla_decode at MLA_CASE held element by element against the
+    plain softmax (`mla_decode_check`, ATTN_TOL_DOC's bf16 bound) and
+    against `paged_mla_decode_ref`, then timed: CUDA-event times (`ms`),
+    profiler device times (`device_ms`), the plain version, and the
+    yardstick (`library_ms`, which the port never calls): SDPA over the
+    strips gathered beforehand, k the 576-wide rows expanded to every
+    head, v their first 512 columns, the lengths as a boolean mask.  The bound
+    is the bytes at the valid lengths (each row read once, q read and the
+    output written once, at 3.35 TB/s) or the operations (2 H (576 + 512)
+    per valid position at 989 TFLOP/s), whichever is longer."""
+    import torch.nn.functional as F
+    from repro_torch.models.model import _paged_view
+    b, S, bs, H = MLA_CASE
+    q, pool, tables, lengths, scale = mla_inputs(torch, full, seed=7)
+    kern = mla_mod.paged_mla_decode
+    before = dict(kern.launches_by_design)
+    got = kern(q, pool, tables, lengths, scale)
+    design = changed(kern, before)
+    out = mla_mod.mla_decode_check(got, q, pool, tables, lengths, scale)
+    ref = mla_mod.paged_mla_decode_ref(q, pool, tables, lengths, scale)
+    out["ref_rel_err"] = ((got.float() - ref.float()).abs().max()
+                          / ref.float().abs().max()).item()
+    out["repeatable"] = bool(torch.equal(got, kern(q, pool, tables, lengths,
+                                                   scale)))
+    # every head reads the same rows: stride-0 views, which SDPA's
+    # efficient kernel takes (enable_gqa sent it to the math path)
+    strips = _paged_view(pool, tables)[:, None].expand(b, H, S, 576)
+    mask = (torch.arange(S, device="cuda") < lengths[:, None])[:, None,
+                                                                None]
+    qh = q[:, :, None]
+
+    def library(i):
+        return F.scaled_dot_product_attention(
+            qh, strips, strips[..., :512], attn_mask=mask, scale=scale)
+    live = lengths > 0
+    lib_err = (library(0)[:, :, 0][live].float()
+               - got[live].float()).abs().max().item()
+    valid = int(lengths.sum())
+    out.update({
+        "design": design, "valid_positions": valid,
+        "ms": time_ms(torch, lambda i: kern(q, pool, tables, lengths, scale),
+                      1),
+        "device_ms": device_ms(
+            torch, lambda i: kern(q, pool, tables, lengths, scale), 1),
+        "plain_ms": time_ms(torch, lambda i: mla_mod.paged_mla_decode_ref(
+            q, pool, tables, lengths, scale), 1),
+        "library_ms": time_ms(torch, library, 1),
+        "library_device_ms": device_ms(torch, library, 1),
+        "bytes_ms": 1e3 * (valid * 576 * 2 + b * H * (576 + 512) * 2)
+        / HBM_BYTES_PER_S,
+        "ops_ms": 1e3 * 2 * H * (576 + 512) * valid / BF16_OPS_PER_S})
+    out["bound_ms"] = max(out["bytes_ms"], out["ops_ms"])
+    out["line"] = (
+        f"paged_mla_decode at (b, S, bs, H) = {MLA_CASE}, rows of 576, "
+        f"{'every slot at S' if full else 'ragged lengths'} ({valid} valid "
+        f"positions), design {design}: max|d|={out['max_abs_err']!r}, max "
+        f"|d|/bound={out['worst']!r} {'ok' if out['ok'] else 'FAIL'} "
+        f"({ATTN_TOL_DOC}); against paged_mla_decode_ref max|d|/max|ref| "
+        f"{out['ref_rel_err']!r}; kernel {out['ms']!r} ms, plain "
+        f"{out['plain_ms']!r} ms, library_ms {out['library_ms']!r} ms "
+        f"(SDPA over the gathered strips, masked; max|d| vs the kernel "
+        f"{lib_err!r}); bound {out['bound_ms']!r} ms (bytes "
+        f"{out['bytes_ms']!r}, operations {out['ops_ms']!r}), "
+        f"{out['bound_ms'] / out['ms']:.1%} of bound (CUDA-event times); "
+        f"profiler device times: kernel {out['device_ms']!r} ms "
+        f"({out['bound_ms'] / out['device_ms']:.1%} of bound), library "
+        f"{out['library_device_ms']!r} ms")
+    del q, pool, strips, got, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def mla_engine(torch, card: str) -> dict:
+    """moonlight-16b-a3b at full size, INT8 and planned, through the
+    continuous engine (MLA_CASE's slots, length and blocks): one warm-up
+    request to capture the step, then MLA_REQUESTS ragged requests all at
+    once, the launch counts set to 0 just before.  Every replayed step
+    must credit one paged_mla_decode launch per layer and launch no GQA
+    attention kernel."""
+    import gc
+
+    from repro_torch.configs import RunConfig, get
+    from repro_torch.kernels import paged_decode_attention, paged_mla_decode
+    from repro_torch.models import init
+    from repro_torch.serving import (ContinuousBatchingEngine, DecodeCore,
+                                     synthetic_requests)
+    b, S, bs, _ = MLA_CASE
+    cfg = get(MLA_ARCH)
+    rc = RunConfig(attn_impl="naive", remat=False)
+    t0 = time.perf_counter()
+    params = init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                  device="cuda")
+    core = DecodeCore(cfg, rc, params, quantize=True, plan_batch=b,
+                      plan_max_len=S, device="cuda")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = ContinuousBatchingEngine(core, n_slots=b, max_len=S,
+                                   block_size=bs)
+    eng.run(synthetic_requests(cfg, 2, seed=1, prompt_len=(2, 2),
+                               new_tokens=(2, 2)), None)      # captures
+    setup = time.perf_counter() - t0
+    steps0 = eng.steps
+    reqs = synthetic_requests(cfg, MLA_REQUESTS, seed=0, prompt_len=(8, 64),
+                              new_tokens=(8, 64))
+    reset_counts(paged_mla_decode)
+    reset_counts(paged_decode_attention)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(reqs, None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_steps = eng.steps - steps0
+    done = eng.completed[-MLA_REQUESTS:]
+    out = {"launches": paged_mla_decode.launches,
+           "by_design": dict(paged_mla_decode.launches_by_design),
+           "gqa_launches": paged_decode_attention.launches,
+           "steps": n_steps, "layers": cfg.n_layers,
+           "ms_per_step": 1e3 * wall / max(1, n_steps),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"{MLA_ARCH} engine, {MLA_REQUESTS} requests all at once on {b} "
+          f"slots x {S} (blocks of {bs}): {len(done)} done, {n_steps} steps "
+          f"in {wall!r} s ({out['ms_per_step']!r} ms/step, set-up "
+          f"{setup:.1f} s, peak {out['peak_gib']:.2f} GiB); "
+          f"paged_mla_decode launches {out['launches']} by design "
+          f"{out['by_design']} (expected {n_steps} steps x {cfg.n_layers} "
+          f"layers = {n_steps * cfg.n_layers}), paged_decode_attention "
+          f"launches {out['gqa_launches']} [{card}]")
+    if out["launches"] != n_steps * cfg.n_layers or out["gqa_launches"] or (
+            out["by_design"]["mla"] != out["launches"]):
+        raise RuntimeError(f"{MLA_ARCH} engine launched paged_mla_decode "
+                           f"{out['launches']} times, expected "
+                           f"{n_steps * cfg.n_layers}")
+    if len(done) != MLA_REQUESTS or any(
+            len(r.tokens) != r.max_new_tokens for r in done):
+        raise RuntimeError(f"{MLA_ARCH} engine did not complete every "
+                           f"request with its max_new_tokens")
+    del eng, core
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mla_phase(torch, card: str) -> list[dict]:
+    """Phase 33 (see the module docstring).  Returns its entry of the
+    kernels line."""
+    t_phase = time.perf_counter()
+    mla_mod = importlib.import_module("repro_torch.kernels.mla_decode")
+    times = {}
+    for full in (False, True):
+        t = times[full] = time_mla(torch, mla_mod, full)
+        print(f"{t['line']} [{card}]")
+        if not (t["ok"] and t["repeatable"] and t["design"] == "mla"):
+            raise RuntimeError(f"paged_mla_decode disagrees with its plain "
+                               f"version ({ATTN_TOL_DOC}), is not "
+                               f"repeatable or ran another design")
+    eng = mla_engine(torch, card)
+    print(f"mla: phase 33 took {time.perf_counter() - t_phase:.1f} s")
+    t = times[False]
+    return [{
+        "name": "paged_mla_decode", "route": "cuda",
+        "path": f"ops.paged_mla_decode in the {MLA_ARCH} engine's decode "
+                f"step",
+        "source": "src/repro_torch/kernels/csrc/mla_decode.cu",
+        "replaces": "none: the JAX package has no latent attention "
+                    "(models/attention.py:latent_attend over the gathered "
+                    "strips is the plain version)",
+        "launches": eng["launches"],
+        "max_abs_err": max(times[f]["max_abs_err"] for f in times),
+        "ref_rel_err": max(times[f]["ref_rel_err"] for f in times),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                     else "operations"),
+        "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+        "library_device_ms": t["library_device_ms"],
+        "full_length": {k: times[True][k] for k in (
+            "ms", "device_ms", "bound_ms", "plain_ms", "library_ms",
+            "library_device_ms")},
+        "design": "mla",
+        "work": f"one call at (b, S, bs, H) = {MLA_CASE}, rows of 576 bf16, "
+                f"ragged lengths ({t['valid_positions']} valid positions; "
+                f"full_length: every slot at S); launches counted over the "
+                f"{MLA_ARCH} engine run ({eng['steps']} steps x "
+                f"{eng['layers']} layers)"}]
+
+
 # --- the paper's experiments (phase 29) --------------------------------------
 
 PAPER_OUT = os.path.join("runs", "paper")    # the CLI's --out, gitignored
@@ -2775,6 +3002,11 @@ def main() -> int:
     if sys.argv[1:] == ["--sweep-rank"]:
         return sweep_rank_worker()
     sys.path.insert(0, os.path.join(HERE, "src"))
+    if sys.argv[1:] == ["--mla"]:
+        mla_kernels = mla_phase(torch, card_line())
+        print(json.dumps({"kernels": mla_kernels}))
+        print(card_line())
+        return 0
     import numpy as np
     from repro_torch.configs import ARCHS, SHAPES, RunConfig
     from repro_torch.core import (CampaignSpec, GEMM, SweepEngine,
@@ -4092,8 +4324,9 @@ def main() -> int:
     dist_run = distributed_phase(torch, card, entries, golden, golden_spec,
                                  golden_front)      # phase 31
     dry_run = dryrun_phase(torch, card)             # phase 32
+    mla_kernels = mla_phase(torch, card)            # phase 33
 
-    # --- 33. result lines ----------------------------------------------------
+    # --- 34. result lines ----------------------------------------------------
     kernels = [{
         "name": "int8_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_gemm.cu",
@@ -4336,6 +4569,7 @@ def main() -> int:
                 f"plus both gloo ranks' shards of the golden plan"}]
     kernels += fam_kernels
     kernels.append(dry_run["block"])
+    kernels += mla_kernels
     for entry in kernels:               # JSON has no NaN: not measured
         for key in ("device_ms", "library_device_ms"):
             if key in entry and not math.isfinite(entry[key]):

@@ -22,6 +22,33 @@ class MoEConfig:
     every_n_layers: int = 1         # MoE FFN every N layers (1 = all)
     capacity_factor: float = 1.25
     router_aux_loss: float = 0.001
+    # the router: "softmax", or DeepSeek-V3's "noaux_tc", "sigmoid"
+    # scoring with a per-expert bias that only selects; the top-k
+    # weights are renormalised to sum 1 either way
+    scoring: str = "softmax"        # "softmax" | "sigmoid"
+    routed_scale: float = 1.0       # multiplies the routed experts' weights
+    first_dense_layers: int = 0     # leading layers with a dense FFN (d_ff)
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2/V3): keys and values are
+    up-projected from one `kv_lora_rank`-wide latent per token, beside a
+    `qk_rope_head_dim`-wide roped key shared by every head."""
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def row_width(self) -> int:
+        """Width of one token's cached latent row: the latent and the
+        roped key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +99,7 @@ class ModelConfig:
     sliding_window: int = 0         # 0 = full attention; >0 = local window
     # sub-configs
     moe: MoEConfig | None = None
+    mla: MLAConfig | None = None
     ssm: SSMConfig | None = None
     vision: VisionConfig | None = None
     audio: AudioConfig | None = None
@@ -103,11 +131,19 @@ class ModelConfig:
             n_attn = 0
         attn = (d * self.n_heads * h + 2 * d * self.n_kv_heads * h
                 + self.n_heads * h * d)
+        if self.mla:
+            a = self.mla
+            attn = (d * self.n_heads * a.qk_head_dim      # wq
+                    + d * a.row_width                     # wkv_a
+                    + a.kv_lora_rank * self.n_heads
+                    * (a.qk_nope_head_dim + a.v_head_dim)  # wkv_b
+                    + self.n_heads * a.v_head_dim * d)    # wo
         per_layer += 0  # accumulated per kind below
         total = emb + n_attn * attn
         # FFN / experts
         if self.moe:
-            moe_layers = self.n_layers // self.moe.every_n_layers
+            lead = self.moe.first_dense_layers
+            moe_layers = (self.n_layers - lead) // self.moe.every_n_layers
             dense_layers = self.n_layers - moe_layers
             total += moe_layers * (
                 self.moe.n_experts * 3 * d * self.moe.expert_d_ff
@@ -138,7 +174,8 @@ class ModelConfig:
         if not self.moe:
             return self.param_count()
         d = self.d_model
-        moe_layers = self.n_layers // self.moe.every_n_layers
+        moe_layers = ((self.n_layers - self.moe.first_dense_layers)
+                      // self.moe.every_n_layers)
         inactive = moe_layers * (self.moe.n_experts - self.moe.top_k) \
             * 3 * d * self.moe.expert_d_ff
         return int(self.param_count() - inactive)
@@ -217,6 +254,15 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
             cfg.moe, n_experts=min(cfg.moe.n_experts, 4),
             top_k=min(cfg.moe.top_k, 2), expert_d_ff=64,
             shared_d_ff=64 if cfg.moe.n_shared_experts else 0)
+        if cfg.moe.first_dense_layers:
+            # one leading dense layer, then the two MoE layers
+            kw["moe"] = dataclasses.replace(kw["moe"], first_dense_layers=1)
+            n_layers = 3
+            kw["n_layers"] = n_layers
+    if cfg.mla:
+        kw["mla"] = dataclasses.replace(
+            cfg.mla, kv_lora_rank=32, qk_nope_head_dim=16,
+            qk_rope_head_dim=8, v_head_dim=16)
     if cfg.ssm:
         kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, headdim=16,
                                         chunk=32)

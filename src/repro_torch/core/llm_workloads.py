@@ -43,7 +43,25 @@ def gemms_of_model(cfg: ModelConfig, shape: ShapeConfig) -> list[GEMM]:
                             count=int(count)))
 
     # --- attention projections ---
-    if n_attn:
+    if n_attn and cfg.mla:
+        # latent attention: q and the latent row from d, the latent up to
+        # k_nope and v per head, the output from v; decode attends in the
+        # absorbed form over rows of kv_lora_rank + qk_rope_head_dim
+        a = cfg.mla
+        H = cfg.n_heads
+        add(M, H * a.qk_head_dim, d, f"{cfg.name} Wq", n_attn * per_seq)
+        add(M, a.row_width, d, f"{cfg.name} Wkva", n_attn * per_seq)
+        add(M, H * (a.qk_nope_head_dim + a.v_head_dim), a.kv_lora_rank,
+            f"{cfg.name} Wkvb", n_attn * per_seq)
+        add(M, d, H * a.v_head_dim, f"{cfg.name} Wo", n_attn * per_seq)
+        if decode:
+            add(b, s, a.row_width, f"{cfg.name} qK^T (decode)", n_attn * H)
+            add(b, a.kv_lora_rank, s, f"{cfg.name} pV (decode)", n_attn * H)
+        else:
+            add(s, s, a.qk_head_dim, f"{cfg.name} QK^T", n_attn * H * per_seq)
+            add(s, a.v_head_dim, s, f"{cfg.name} QK^T.V",
+                n_attn * H * per_seq)
+    elif n_attn:
         add(M, cfg.n_heads * dh, d, f"{cfg.name} Wq", n_attn * per_seq)
         add(M, cfg.n_kv_heads * dh, d, f"{cfg.name} Wk", n_attn * per_seq)
         add(M, cfg.n_kv_heads * dh, d, f"{cfg.name} Wv", n_attn * per_seq)
@@ -63,9 +81,10 @@ def gemms_of_model(cfg: ModelConfig, shape: ShapeConfig) -> list[GEMM]:
 
     # --- FFN / experts ---
     if cfg.moe:
-        moe_layers = cfg.n_layers // cfg.moe.every_n_layers
+        lead = cfg.moe.first_dense_layers
+        moe_layers = (cfg.n_layers - lead) // cfg.moe.every_n_layers
         dense_layers = (cfg.n_layers - moe_layers
-                        if cfg.family == "hybrid" else 0)
+                        if cfg.family == "hybrid" else lead)
         tokens = M
         per_expert_m = max(1, tokens * cfg.moe.top_k // cfg.moe.n_experts)
         for nm, wn, wk in (("gate", cfg.moe.expert_d_ff, d),

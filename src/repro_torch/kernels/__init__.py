@@ -13,6 +13,9 @@
 * `paged_decode_attention` — its paged design, the engine's decode
   attention read in place from the block pool through the block tables
   (no TPU counterpart: the JAX package gathers the strips for XLA).
+* `paged_mla_decode` — the engine's latent (MLA) decode attention over a
+  latent block pool, 16 heads on one 576-wide row per position (no TPU
+  counterpart: the JAX package has no latent attention).
 
 `autotune` reports the blocks, shared memory and grid of the GEMM kernel
 `plan_gemm` picks for a shape (`autotune_report`).  `csrc/span_mark.cu`
@@ -22,8 +25,9 @@ built by `build.py` when a span recorder is first armed on a card.
 `ops` holds the public wrappers in the JAX package's (b, s, heads, d)
 layouts.  `build.py` compiles each CUDA source with nvcc at first use on a
 machine with a card; importing this package compiles nothing.  As
-attributes of the package, the four kernel names and
-`paged_decode_attention` are the wrapper functions; their modules are
+attributes of the package, the four kernel names,
+`paged_decode_attention` and `paged_mla_decode` are the wrapper
+functions; their modules are
 reached as `repro_torch.kernels.<name>` through the import system
 (`importlib.import_module`).
 """
@@ -34,6 +38,7 @@ from .decode_attention import (decode_attention, decode_attention_check,
 from .flash_attention import (flash_attention, flash_attention_check,
                               flash_attention_ref)
 from .int8_gemm import GemmPlan, int8_gemm, int8_gemm_ref, plan_gemm
+from .mla_decode import paged_mla_decode, paged_mla_decode_ref
 from .sweep_eval import (SWEEP_OUT_FIELDS, kernel_status, sweep_eval,
                          sweep_eval_ref)
 
@@ -42,6 +47,7 @@ __all__ = ["ops", "int8_gemm", "int8_gemm_ref", "plan_gemm",
            "flash_attention_ref", "flash_attention_check",
            "decode_attention", "decode_attention_ref",
            "decode_attention_check", "paged_decode_attention",
-           "paged_decode_attention_ref",
+           "paged_decode_attention_ref", "paged_mla_decode",
+           "paged_mla_decode_ref",
            "SWEEP_OUT_FIELDS", "kernel_status", "sweep_eval",
            "sweep_eval_ref"]

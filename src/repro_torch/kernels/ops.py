@@ -9,7 +9,8 @@ function on fewer bytes.  Each wrapper takes its kernel's plain version
 only for CPU tensors (see the kernel modules).  `paged_decode_attention`
 (the engine's decode attention over a block pool, which the JAX package
 leaves to XLA) already takes the (b, 1, H, d) layout and is re-exported
-as it is.
+as it is, as is `paged_mla_decode` (the latent attention step, which the
+JAX package does not have).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from .decode_attention import decode_attention as _decode_attention
 from .decode_attention import paged_decode_attention  # noqa: F401
 from .flash_attention import flash_attention as _flash_attention
 from .int8_gemm import int8_gemm
+from .mla_decode import paged_mla_decode  # noqa: F401
 
 
 def fold(t):

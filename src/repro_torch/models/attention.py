@@ -194,3 +194,19 @@ def decode_attend(q, k_cache, v_cache, cache_len, window: int = 0,
     p = torch.softmax(s, dim=-1)
     out = einsum("bhqk,bkhd->bqhd", p, v.float())
     return out.to(q.dtype)
+
+
+def latent_attend(q, rows, cache_len, scale: float, v_dim: int):
+    """Latent (MLA) decode attention: every query head over one shared
+    row per position.  q: (b, H, w); rows: (b, S, w); cache_len (b,):
+    positions < cache_len are valid.  The scores q . row times `scale`
+    in f32, masked with NEG_INF, softmax, then the weighted sum of each
+    row's first `v_dim` columns in f32 -> (b, H, v_dim) in q's dtype; a
+    slot with no valid position gives zeros."""
+    S = rows.shape[1]
+    s = einsum("bhw,bsw->bhs", q.float(), rows.float()) * scale
+    valid = torch.arange(S, device=q.device)[None, :] < cache_len[:, None]
+    p = torch.softmax(torch.where(valid[:, None, :], s, NEG_INF), dim=-1)
+    out = einsum("bhs,bsc->bhc", p, rows[..., :v_dim].float())
+    out = torch.where((cache_len > 0)[:, None, None], out, 0.0)
+    return out.to(q.dtype)

@@ -2,15 +2,21 @@
 
 A model is a stack of *periods*: the smallest repeating layer pattern.
 Each period is a list of *slots*, each slot = (mixer, ffn) with mixer in
-{attn, mamba, cross} and ffn in {dense, moe, None}, as in the JAX
+{attn, mla, mamba, cross} and ffn in {dense, moe, None}, as in the JAX
 package:
 
-  dense / moe / audio : period = [(attn, dense | moe)]
+  dense / moe / audio : period = [(attn | mla, dense | moe)]
   ssm (mamba2)        : period = [(mamba, None)]
   hybrid (jamba)      : period = [(attn, ffn0), (mamba, ffn1) x (attn_every-1)],
                         ffn_i = moe on every `moe.every_n_layers`-th slot
   vlm (llama3.2-v)    : period = [(attn, dense) x (cross_attn_every-1),
                                   (cross, dense)]
+
+A model with `cfg.mla` (DeepSeek-V3's block, which the JAX package does
+not have) attends by multi-head latent attention ("mla" slots, below),
+and one with `cfg.moe.first_dense_layers` runs that many leading layers
+of the same mixer with a dense FFN (width d_ff) before its periods; their
+parameters are `params["lead"]`, stacked over those layers like a slot's.
 
 An audio model (musicgen) reads and writes `n_codebooks` parallel token
 streams: its embedding is (nb, vocab, d), summed over the codebooks, and
@@ -46,6 +52,28 @@ contiguous and in the paged cache; the cross slots' image K/V stay bf16.
 `decode_step` makes no host sync: `pos`, `active` and `block_tables` may
 be device tensors, so the step can be captured as a CUDA graph
 (`repro_torch.serving.core`).
+
+Multi-head latent attention (an "mla" slot; HF `modeling_deepseek.py`
+with `q_lora_rank` null).  Per token: q = h W_q, split per head into
+q_nope (qk_nope_head_dim) and q_pe (qk_rope_head_dim); [c, k_pe] = h
+W_kva, c = RMSNorm(c) (kv_lora_rank wide, eps rmsnorm_eps); RoPE on q_pe
+and on k_pe, one head that every query head shares; [k_nope, v] = c
+W_kvb per head; the softmax scale is qk_head_dim^-0.5.  RoPE rotates
+the two halves of each 64-wide head, as the other attention slots do
+(HF rotates interleaved pairs; on random weights the two differ by a
+fixed permutation of W_q's and W_kva's rope columns).
+  * `forward` runs the expanded form: k = [k_nope, k_pe], v per head,
+    through `naive_causal`, the plain attention path (the flash kernels
+    take one head width for q, k and v).
+  * `decode_step` runs the absorbed form over a latent cache of one row
+    [c, rope(k_pe)] (kv_lora_rank + qk_rope_head_dim wide, bf16) per
+    token and layer, in place of K and V heads: the latent query
+    [q_nope W_UK, q_pe] attends over the rows, the first kv_lora_rank
+    columns of each row serving as V, and the result goes back through
+    W_UV (W_UK and W_UV are W_kvb's k_nope and v columns).  A bf16 block
+    pool on a card takes the paged MLA decode kernel
+    (`kernels.ops.paged_mla_decode`), every other cache the plain
+    `attention.latent_attend`.
 """
 from __future__ import annotations
 
@@ -65,7 +93,9 @@ from ..sharding.constraints import (constrain_qkv, constrain_residual,
                                     index_copy_, is_dtensor, logsumexp,
                                     merge_heads, pick_last, reduce_partial,
                                     replicate_over_model, split_heads)
-from .attention import _gqa_expand, attend, decode_attend
+from ..quant.lowbit import unpack_int4
+from .attention import (_gqa_expand, _scale, attend, decode_attend,
+                        latent_attend, naive_causal)
 from .layers import (apply_rope, attn_out_proj, dense_init, dtype_of,
                      embed_init, linear, qkv_proj, rmsnorm, swiglu)
 from .mamba2 import mamba_apply, mamba_cache_shapes, mamba_init
@@ -79,10 +109,14 @@ class Slot:
 
 
 def period_slots(cfg: ModelConfig) -> list[Slot]:
+    attn = "mla" if cfg.mla else "attn"
+    if cfg.mla and cfg.family not in ("dense", "audio", "moe"):
+        raise ValueError(f"{cfg.name}: latent attention runs in a dense, "
+                         f"audio or moe model")
     if cfg.family in ("dense", "audio"):
-        return [Slot("attn", "dense")]
+        return [Slot(attn, "dense")]
     if cfg.family == "moe":
-        return [Slot("attn", "moe")]
+        return [Slot(attn, "moe")]
     if cfg.family == "ssm":
         return [Slot("mamba", None)]
     if cfg.family == "hybrid":
@@ -99,12 +133,35 @@ def period_slots(cfg: ModelConfig) -> list[Slot]:
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
+def n_lead(cfg: ModelConfig) -> int:
+    """Leading layers with a dense FFN, ahead of the periods."""
+    return cfg.moe.first_dense_layers if cfg.moe else 0
+
+
+def lead_slot(cfg: ModelConfig) -> Slot | None:
+    """The leading layers' slot: the period's mixer and a dense FFN (only
+    where the period is one slot), or None without leading layers."""
+    if not n_lead(cfg):
+        return None
+    slots = period_slots(cfg)
+    if len(slots) != 1:
+        raise ValueError(f"{cfg.name}: leading dense layers ahead of a "
+                         f"period of {len(slots)} slots")
+    return Slot(slots[0].mixer, "dense")
+
+
 def n_periods(cfg: ModelConfig) -> int:
     P = len(period_slots(cfg))
-    if cfg.n_layers % P:
-        raise ValueError(f"{cfg.n_layers} layers do not split into periods "
-                         f"of {P}")
-    return cfg.n_layers // P
+    n = cfg.n_layers - n_lead(cfg)
+    if n < 0 or n % P:
+        raise ValueError(f"{n} layers do not split into periods of {P}")
+    return n // P
+
+
+def cache_layers(cfg: ModelConfig, si: int) -> int:
+    """Layers in slot si's cache entry: one per period, and slot 0's
+    leading layers first (rows 0 .. n_lead - 1)."""
+    return n_periods(cfg) + (n_lead(cfg) if si == 0 else 0)
 
 
 # --- init --------------------------------------------------------------------
@@ -116,7 +173,19 @@ def _slot_init(gen: torch.Generator, slot: Slot, cfg: ModelConfig, dtype,
     d = cfg.d_model
     ones = dict(dtype=dtype, device=device)
     p = {"norm1": {"scale": torch.ones(d, **ones)}}
-    if slot.mixer in ("attn", "cross"):
+    if slot.mixer == "mla":
+        a, nh = cfg.mla, cfg.n_heads
+        p["attn"] = {
+            "wq": dense_init(gen, d, nh * a.qk_head_dim, dtype,
+                             device=device),
+            "wkv_a": dense_init(gen, d, a.row_width, dtype, device=device),
+            "kv_norm": {"scale": torch.ones(a.kv_lora_rank, **ones)},
+            "wkv_b": dense_init(gen, a.kv_lora_rank,
+                                nh * (a.qk_nope_head_dim + a.v_head_dim),
+                                dtype, device=device),
+            "wo": dense_init(gen, nh * a.v_head_dim, d, dtype,
+                             1.0 / math.sqrt(nh * a.v_head_dim), device)}
+    elif slot.mixer in ("attn", "cross"):
         nh, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
         p["attn"] = {
             name: dense_init(gen, k, n, dtype, scale, device)
@@ -184,6 +253,12 @@ def init(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
             params["lm_head"] = head()
     params["final_norm"] = {"scale": torch.ones(d, dtype=dtype,
                                                 device=device)}
+    lead = None
+    for i in range(n_lead(cfg)):
+        lead = _stack_into(lead, i, _slot_init(gen, lead_slot(cfg), cfg,
+                                               dtype, device), n_lead(cfg))
+    if lead is not None:
+        params["lead"] = lead
     slots = period_slots(cfg)
     stacked = [None] * len(slots)
     for i in range(L):
@@ -226,6 +301,9 @@ def init_cache(cfg: ModelConfig, rc: RunConfig, batch: int, max_len: int,
     d_state, headdim), "conv" (periods, batch, d_conv - 1, channels)}.
     A cross slot gets the bf16 image K/V of `_cross_entry`, which no
     step writes (the JAX package's serving never fills them either).
+    An "mla" slot gets {"kv"} (layers, batch, max_len, kv_lora_rank +
+    qk_rope_head_dim): one latent row per token.  Slot 0's entry holds
+    the leading dense layers' rows first (`cache_layers`).
 
     The conv carry is bf16 but under an f32 compute dtype, where it is
     f32: the JAX package's contiguous step returns the carry it computed
@@ -237,14 +315,19 @@ def init_cache(cfg: ModelConfig, rc: RunConfig, batch: int, max_len: int,
     conv_dtype = torch.promote_types(torch.bfloat16,
                                      dtype_of(cfg.compute_dtype))
     caches = []
-    for slot in period_slots(cfg):
+    for si, slot in enumerate(period_slots(cfg)):
+        if slot.mixer == "mla":
+            caches.append({"kv": torch.zeros(
+                (cache_layers(cfg, si), batch, max_len,
+                 _latent_width(cfg, rc)), dtype=dtype, device=device)})
+            continue
         if slot.mixer == "mamba":
             caches.append(_mamba_entry(cfg, batch, device, conv_dtype))
             continue
         if slot.mixer == "cross":
             caches.append(_cross_entry(cfg, batch, n_image_tokens, device))
             continue
-        shape = (n_periods(cfg), batch, max_len, cfg.n_kv_heads,
+        shape = (cache_layers(cfg, si), batch, max_len, cfg.n_kv_heads,
                  cfg.head_dim())
         c = {"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -254,6 +337,15 @@ def init_cache(cfg: ModelConfig, rc: RunConfig, batch: int, max_len: int,
                                      device=device)
         caches.append(c)
     return caches
+
+
+def _latent_width(cfg: ModelConfig, rc: RunConfig) -> int:
+    """An "mla" slot's cache row: the latent and the roped key.  The
+    latent cache is kept in rc.kv_cache_dtype's float type only."""
+    if rc.kv_cache_dtype == "int8":
+        raise ValueError(f"{cfg.name}: latent attention keeps its cache in "
+                         f"a float type, not int8")
+    return cfg.mla.row_width
 
 
 def _quantize_kv(t):
@@ -298,19 +390,26 @@ def init_paged_cache(cfg: ModelConfig, rc: RunConfig, n_slots: int,
     (see `_paged_write`); the pool itself has the JAX package's shape.
     A mamba slot's state and conv carry stay per serving slot, one row
     for each of the `n_slots` (they are O(1) in sequence length: nothing
-    to page), and so do a cross slot's image K/V."""
+    to page), and so do a cross slot's image K/V.  An "mla" slot gets
+    one latent pool {"kv"} (layers, n_blocks, block_size, kv_lora_rank +
+    qk_rope_head_dim), leading dense layers first in slot 0's."""
     int8 = rc.kv_cache_dtype == "int8"
     dtype = torch.int8 if int8 else dtype_of(rc.kv_cache_dtype)
-    shape = (n_periods(cfg), n_blocks, block_size, cfg.n_kv_heads,
-             cfg.head_dim())
     caches = []
-    for slot in period_slots(cfg):
+    for si, slot in enumerate(period_slots(cfg)):
+        if slot.mixer == "mla":
+            caches.append({"kv": _pool(
+                (cache_layers(cfg, si), n_blocks, block_size,
+                 _latent_width(cfg, rc)), dtype, device)})
+            continue
         if slot.mixer == "mamba":
             caches.append(_mamba_entry(cfg, n_slots, device))
             continue
         if slot.mixer == "cross":
             caches.append(_cross_entry(cfg, n_slots, n_image_tokens, device))
             continue
+        shape = (cache_layers(cfg, si), n_blocks, block_size,
+                 cfg.n_kv_heads, cfg.head_dim())
         c = {"k": _pool(shape, dtype, device), "v": _pool(shape, dtype, device)}
         if int8:
             for key in ("k_scale", "v_scale"):
@@ -519,47 +618,55 @@ def forward(params, tokens, cfg: ModelConfig, rc: RunConfig,
     L = n_periods(cfg)
     layers = [_per_period(slot_params, L) for slot_params in params["slots"]]
 
+    def block(slot, sp, x, aux):
+        sp = gather_fsdp(sp)
+        if slot.mixer == "cross":
+            # the image K/V first, then the mixer: the JAX package's
+            # order of the route trace
+            image_kv = [split_heads(linear(sp["attn"][w], image_embeds,
+                                           "xattn-KV", plan), kvh, dh, "kv")
+                        for w in ("wk", "wv")]
+        h = rmsnorm(sp["norm1"], x, cfg.rmsnorm_eps)
+        if slot.mixer == "cross":
+            y = _cross_mix(sp, h, image_kv, cfg, plan)
+        elif slot.mixer == "mamba":
+            y, _ = mamba_apply(sp["mamba"], h, cfg, plan=plan)
+        elif slot.mixer == "mla":
+            y = _mla_mix(sp["attn"], h, pos, cfg, plan)
+        else:
+            q, k, v = qkv_proj(sp["attn"], h, nh, kvh, dh, plan)
+            q = apply_rope(q, pos, cfg.rope_theta)
+            k = apply_rope(k, pos, cfg.rope_theta)
+            q, k, v = constrain_qkv(q, k, v, rc)
+            o = attend(q, k, v, impl=rc.attn_impl, chunk=rc.attn_chunk,
+                       window=cfg.sliding_window,
+                       block_causal=rc.block_causal,
+                       q_chunk=rc.attn_q_chunk)
+            y = attn_out_proj(sp["attn"], merge_heads(o), plan)
+        x, a = _apply_ffn(slot, sp, constrain_residual(x + y, rc), cfg, plan)
+        return constrain_residual(x, rc), aux + a
+
     def period(i, x, aux):
         for slot, per in zip(slots, layers):
-            sp = gather_fsdp(per[i])
-            if slot.mixer == "cross":
-                # the image K/V first, then the mixer: the JAX package's
-                # order of the route trace
-                image_kv = [split_heads(linear(sp["attn"][w], image_embeds,
-                                               "xattn-KV", plan), kvh, dh,
-                                        "kv")
-                            for w in ("wk", "wv")]
-            h = rmsnorm(sp["norm1"], x, cfg.rmsnorm_eps)
-            if slot.mixer == "cross":
-                y = _cross_mix(sp, h, image_kv, cfg, plan)
-            elif slot.mixer == "mamba":
-                y, _ = mamba_apply(sp["mamba"], h, cfg, plan=plan)
-            else:
-                q, k, v = qkv_proj(sp["attn"], h, nh, kvh, dh, plan)
-                q = apply_rope(q, pos, cfg.rope_theta)
-                k = apply_rope(k, pos, cfg.rope_theta)
-                q, k, v = constrain_qkv(q, k, v, rc)
-                o = attend(q, k, v, impl=rc.attn_impl, chunk=rc.attn_chunk,
-                           window=cfg.sliding_window,
-                           block_causal=rc.block_causal,
-                           q_chunk=rc.attn_q_chunk)
-                y = attn_out_proj(sp["attn"], merge_heads(o), plan)
-            x, a = _apply_ffn(slot, sp, constrain_residual(x + y, rc), cfg,
-                              plan)
-            x = constrain_residual(x, rc)
-            aux = aux + a
+            x, aux = block(slot, per[i], x, aux)
         return x, aux
 
+    def leading(i, x, aux):
+        return block(lead_slot(cfg), lead[i], x, aux)
+
+    lead = (_per_period(params["lead"], n_lead(cfg)) if n_lead(cfg)
+            else [])
     remat = rc.remat and torch.is_grad_enabled()
     context_fn = (_dots_saveable if rc.remat_policy == "dots"
                   else noop_context_fn)
     aux = 0.0
-    for i in range(L):
+    for fn, i in ([(leading, i) for i in range(len(lead))]
+                  + [(period, i) for i in range(L)]):
         if remat:
-            x, aux = checkpoint(period, i, x, aux, use_reentrant=False,
+            x, aux = checkpoint(fn, i, x, aux, use_reentrant=False,
                                 context_fn=context_fn)
         else:
-            x, aux = period(i, x, aux)
+            x, aux = fn(i, x, aux)
     x = rmsnorm(gather_fsdp(params["final_norm"]), x, cfg.rmsnorm_eps)
     return _lm_logits(params, x, cfg, plan), aux
 
@@ -605,16 +712,139 @@ def _mamba_step(mp, layer, h, cfg: ModelConfig, plan, active):
 
 def paged_kernel_fits(pool, block_tables) -> bool:
     """Whether an attention slot's decode step attends through the paged
-    flash-decoding kernel (`kernels.ops.paged_decode_attention`), from the
-    kind of cache the step sees: a block pool (`block_tables` given) in
-    bf16 on a card, not a DTensor.  The kernel's wrapper checks its shape
-    contract and raises where a pool does not meet it.  Every other cache
+    flash-decoding kernel (`kernels.ops.paged_decode_attention`; an "mla"
+    slot: `kernels.ops.paged_mla_decode`), from the kind of cache the
+    step sees: a block pool (`block_tables` given) in bf16 on a card, not
+    a DTensor.  The kernel's wrapper checks its shape contract and
+    raises where a pool does not meet it.  Every other cache
     keeps `decode_attend`: the int8 pool (its dequant is not fused into
     the kernel), the contiguous cache, CPU tensors (the tests' and the
     reference comparisons' bits) and the dry run's meta DTensors.  A cross
     slot never asks (`_cross_step`)."""
     return (block_tables is not None and pool.device.type == "cuda"
             and pool.dtype == torch.bfloat16 and not is_dtensor(pool))
+
+
+def _write_rows(t, new, pos, pvec, active, block_tables):
+    """This step's rows new (b, 1, ...) into a layer's cache t: its block
+    pool at each slot's position (`_paged_write`), or the contiguous
+    cache (b, max_len, ...) at `pos`."""
+    if block_tables is not None:
+        _paged_write(t, new[:, 0], pvec[:, 0], block_tables, active)
+    elif torch.is_tensor(pos):
+        index_copy_(t, 1, pvec[:1, 0], new.to(t.dtype))
+    else:
+        t[:, pos] = new[:, 0].to(t.dtype)
+
+
+def absorbed_mla(ap, cfg: ModelConfig, dtype):
+    """An "mla" slot's W_kvb (..., kv_lora_rank, H * (nope + v)), one
+    layer's or a stack's, as the absorbed decode's two operands: {"uk":
+    W_UK (..., H, nope, kv_lora_rank), "uv": W_UV (..., H, kv_lora_rank,
+    v)} in `dtype`, contiguous.  A quantized leaf's codes times its
+    per-column scale are formed in f32 and rounded to `dtype` once."""
+    a, nh = cfg.mla, cfg.n_heads
+    w = ap["wkv_b"]
+    if not isinstance(w, dict):
+        wf = w.float()
+    else:
+        codes = (unpack_int4(w["q4"], a.kv_lora_rank) if "q4" in w
+                 else w["qf8" if "qf8" in w else "q"])
+        wf = codes.float() * w["scale"].float()[..., None, :]
+    uk, uv = wf.unflatten(-1, (nh, -1)).split(
+        [a.qk_nope_head_dim, a.v_head_dim], -1)
+    return {"uk": uk.movedim(-3, -1).contiguous().to(dtype),
+            "uv": uv.movedim(-2, -3).contiguous().to(dtype)}
+
+
+def with_absorbed(params, cfg: ModelConfig):
+    """`params` with each "mla" slot's absorbed W_UK / W_UV stacked over
+    its layers beside W_kvb (`attn["absorbed"]`, in the compute dtype),
+    so that the decode step reads them in place of re-forming them from
+    W_kvb every step; a model without latent attention as it is."""
+    if not cfg.mla:
+        return params
+    dtype = dtype_of(cfg.compute_dtype)
+    out = dict(params)
+    for key in ("lead", "slots"):
+        if key not in params:
+            continue
+        entries = params[key] if key == "slots" else [params[key]]
+        done = []
+        for slot, sp in zip([lead_slot(cfg)] if key == "lead"
+                            else period_slots(cfg), entries):
+            if slot.mixer == "mla":
+                sp = {**sp, "attn": {**sp["attn"], "absorbed": absorbed_mla(
+                    sp["attn"], cfg, dtype)}}
+            done.append(sp)
+        out[key] = done if key == "slots" else done[0]
+    return out
+
+
+def _mla_qc(ap, h, pos, cfg: ModelConfig, plan):
+    """The queries and the latent rows of tokens h (b, l, d) at positions
+    pos (b | 1, l): q_nope (b, l, H, qk_nope_head_dim), q_pe roped (b, l,
+    H, qk_rope_head_dim) and the rows [RMSNorm(c), rope(k_pe)] (b, l,
+    kv_lora_rank + qk_rope_head_dim)."""
+    a, nh = cfg.mla, cfg.n_heads
+    q = split_heads(linear(ap["wq"], h, "Wq", plan), nh, a.qk_head_dim, "q")
+    q_nope, q_pe = q.split([a.qk_nope_head_dim, a.qk_rope_head_dim], -1)
+    c, k_pe = linear(ap["wkv_a"], h, "Wkva", plan).split(
+        [a.kv_lora_rank, a.qk_rope_head_dim], -1)
+    c = rmsnorm(ap["kv_norm"], c, cfg.rmsnorm_eps)
+    q_pe = apply_rope(q_pe, pos, cfg.rope_theta)
+    k_pe = apply_rope(k_pe[..., None, :], pos, cfg.rope_theta)[..., 0, :]
+    return q_nope, q_pe, torch.cat([c, k_pe], dim=-1)
+
+
+def _mla_mix(ap, h, pos, cfg: ModelConfig, plan=None):
+    """An "mla" slot's mixer over the full sequence, in the expanded
+    form: k = [c W_UK, k_pe] and v = c W_UV per head ("Wkvb"), causal
+    attention by `naive_causal` at scale qk_head_dim^-0.5, then "Wo"."""
+    a, nh = cfg.mla, cfg.n_heads
+    b, l = h.shape[:2]
+    q_nope, q_pe, row = _mla_qc(ap, h, pos, cfg, plan)
+    c, k_pe = row.split([a.kv_lora_rank, a.qk_rope_head_dim], -1)
+    kv = split_heads(linear(ap["wkv_b"], c, "Wkvb", plan), nh,
+                     a.qk_nope_head_dim + a.v_head_dim, "kv")
+    k_nope, v = kv.split([a.qk_nope_head_dim, a.v_head_dim], -1)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe[:, :, None, :].expand(
+        b, l, nh, a.qk_rope_head_dim)], dim=-1)
+    return attn_out_proj(ap, merge_heads(naive_causal(q, k, v)), plan)
+
+
+def _mla_step(ap, layer, h, pos, pvec, lens, cfg: ModelConfig, plan,
+              active, block_tables):
+    """An "mla" slot's decode step, in the absorbed form: this token's
+    latent row written into the layer's latent cache ("attn.kv_write"),
+    then ("attn.core") the latent query [q_nope W_UK, q_pe] attends over
+    the rows at scale qk_head_dim^-0.5 (the paged MLA kernel on a bf16
+    pool on a card, `latent_attend` on every other cache) and the
+    latent output goes back through W_UV.  W_UK and W_UV are the
+    layer's `absorbed_mla` operands, prepared once by `with_absorbed`
+    (formed here where the params lack them).  Returns "Wo"'s output."""
+    a, nh = cfg.mla, cfg.n_heads
+    b = h.shape[0]
+    q_nope, q_pe, row = _mla_qc(ap, h, pvec, cfg, plan)
+    with spans.span("attn.kv_write"):
+        _write_rows(layer["kv"], row, pos, pvec, active, block_tables)
+    with spans.span("attn.core"):
+        ab = (ap["absorbed"] if "absorbed" in ap
+              else absorbed_mla(ap, cfg, h.dtype))
+        q_lat = einsum("bhj,hjc->bhc", q_nope[:, 0], ab["uk"])
+        qf = torch.cat([q_lat, q_pe[:, 0]], dim=-1)   # (b, H, row_width)
+        sm = _scale(a.qk_head_dim)
+        if paged_kernel_fits(layer["kv"], block_tables):
+            from ..kernels import ops as kops
+            o = kops.paged_mla_decode(qf, layer["kv"], block_tables, lens,
+                                      sm)
+        else:
+            rows = (layer["kv"] if block_tables is None
+                    else _paged_view(layer["kv"], block_tables))
+            o = latent_attend(qf, rows, lens, sm, a.kv_lora_rank)
+        o = einsum("bhc,hcj->bhj", o, ab["uv"])
+    return attn_out_proj(ap, o.reshape(b, 1, nh * a.v_head_dim), plan)
 
 
 def _attn_step(ap, layer, h, pos, pvec, lens, cfg: ModelConfig,
@@ -639,14 +869,7 @@ def _attn_step(ap, layer, h, pos, pvec, lens, cfg: ModelConfig,
         else:
             rows = {"k": k, "v": v}
         for key, new in rows.items():
-            if block_tables is not None:
-                _paged_write(layer[key], new[:, 0], pvec[:, 0], block_tables,
-                             active)
-            elif torch.is_tensor(pos):
-                index_copy_(layer[key], 1, pvec[:1, 0],
-                            new.to(layer[key].dtype))
-            else:
-                layer[key][:, pos] = new[:, 0].to(layer[key].dtype)
+            _write_rows(layer[key], new, pos, pvec, active, block_tables)
     kernel = paged_kernel_fits(layer["k"], block_tables)
     with spans.span("attn.gather"):
         strip = layer
@@ -702,11 +925,12 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
       * ragged `pos` (b,): each slot attends and ropes at its own length;
       * `active` (b,) bool: inactive (free or draining) slots write no
         cache row, and their mamba state and conv carry stay as they were;
-      * `block_tables` (b, max_blocks) int: K/V live in the block pool of
-        `init_paged_cache`; the step scatters one row into each slot's
-        current block and attends over the slot's positions (a bf16
-        pool on the card through the paged kernel, which reads the pool
-        in place; every other pool through the slot's gathered strip).
+      * `block_tables` (b, max_blocks) int: K/V (an "mla" slot: latent
+        rows) live in the block pool of `init_paged_cache`; the step
+        scatters one row into each slot's current block and attends over
+        the slot's positions (a bf16 pool on the card through the paged
+        kernel, which reads the pool in place; every other pool through
+        the slot's gathered strip).
         Required whenever `pos` is ragged and the period has an attention
         slot.
 
@@ -716,7 +940,7 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
     ragged = torch.is_tensor(pos) and pos.ndim == 1
     if torch.is_tensor(pos) and pos.ndim > 1:
         raise ValueError(f"pos must be 0-d or (b,), got {tuple(pos.shape)}")
-    if ragged and block_tables is None and any(s.mixer == "attn"
+    if ragged and block_tables is None and any(s.mixer in ("attn", "mla")
                                               for s in slots):
         raise ValueError("ragged per-slot positions need a paged KV cache: "
                          "pass block_tables (see init_paged_cache)")
@@ -729,21 +953,33 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
         else:
             pvec = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
             lens = torch.full((b,), pos + 1, dtype=torch.long, device=x.device)
+
+        def block(slot, sp, layer, x):
+            sp = gather_fsdp(sp)
+            h = rmsnorm(sp["norm1"], x, cfg.rmsnorm_eps)
+            if slot.mixer == "mamba":
+                y = _mamba_step(sp["mamba"], layer, h, cfg, plan, active)
+            elif slot.mixer == "cross":
+                y = _cross_step(sp, layer, h, cfg, plan)
+            elif slot.mixer == "mla":
+                y = _mla_step(sp["attn"], layer, h, pos, pvec, lens, cfg,
+                              plan, active, block_tables)
+            else:
+                y = _attn_step(sp["attn"], layer, h, pos, pvec, lens, cfg,
+                               rc, plan, active, block_tables)
+            x, _ = _apply_ffn(slot, sp, replicate_over_model(x + y), cfg,
+                              plan)
+            return replicate_over_model(x)
+
+        lead = n_lead(cfg)
+        for i in range(lead):           # slot 0's cache rows 0 .. lead - 1
+            x = block(lead_slot(cfg), _layer(params["lead"], i),
+                      {key: t[i] for key, t in cache[0].items()}, x)
         for i in range(n_periods(cfg)):
-            for slot, slot_params, slot_cache in zip(slots, params["slots"],
-                                                     cache):
-                sp = gather_fsdp(_layer(slot_params, i))
-                layer = {key: t[i] for key, t in slot_cache.items()}
-                h = rmsnorm(sp["norm1"], x, cfg.rmsnorm_eps)
-                if slot.mixer == "mamba":
-                    y = _mamba_step(sp["mamba"], layer, h, cfg, plan, active)
-                elif slot.mixer == "cross":
-                    y = _cross_step(sp, layer, h, cfg, plan)
-                else:
-                    y = _attn_step(sp["attn"], layer, h, pos, pvec, lens,
-                                   cfg, rc, plan, active, block_tables)
-                x, _ = _apply_ffn(slot, sp, replicate_over_model(x + y), cfg,
-                                  plan)
-                x = replicate_over_model(x)
+            for si, (slot, slot_params, slot_cache) in enumerate(
+                    zip(slots, params["slots"], cache)):
+                row = i + (lead if si == 0 else 0)
+                x = block(slot, _layer(slot_params, i),
+                          {key: t[row] for key, t in slot_cache.items()}, x)
         x = rmsnorm(gather_fsdp(params["final_norm"]), x, cfg.rmsnorm_eps)
         return _lm_logits(params, x, cfg, plan), cache

@@ -6,6 +6,13 @@ into an (E, C, d) buffer -> batched expert contractions -> weighted
 gather-back.  Tokens beyond expert capacity are dropped (standard
 capacity-factor MoE).
 
+Routing: softmax over the experts, top-k, the k weights renormalised to
+sum 1 (the JAX package's router); or, with `MoEConfig(scoring="sigmoid")`,
+DeepSeek-V3's "noaux_tc" router: the top-k of sigmoid(logits) + a
+per-expert bias that only selects, weighted by the sigmoid scores
+without the bias, renormalised and multiplied by `routed_scale`.  Both
+run in f32.
+
 Decode exception, as in the JAX package: when the token count fits expert
 capacity (T <= C, always true for a decode micro-batch) no token can be
 dropped, so `moe_apply` runs every expert over every token with one
@@ -31,8 +38,9 @@ from .layers import dense_init, linear, swiglu
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype, device="cuda"):
     """One layer's MoE parameters from `gen`: an f32 router (d, E), the
-    stacked experts (E, d, f) / (E, f, d) in `dtype`, and the shared
-    expert's SwiGLU where the config has one."""
+    stacked experts (E, d, f) / (E, f, d) in `dtype`, the shared
+    expert's SwiGLU where the config has one, and an f32 selection bias
+    (E,), zeros, with sigmoid scoring."""
     m = cfg.moe
     d, E, f = cfg.d_model, m.n_experts, m.expert_d_ff
 
@@ -48,6 +56,8 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype, device="cuda"):
         p["shared"] = {"w_gate": dense_init(gen, d, sf, dtype, device=device),
                        "w_up": dense_init(gen, d, sf, dtype, device=device),
                        "w_down": dense_init(gen, sf, d, dtype, device=device)}
+    if m.scoring == "sigmoid":
+        p["score_bias"] = torch.zeros(E, dtype=torch.float32, device=device)
     return p
 
 
@@ -71,6 +81,31 @@ def _sum_over_k(contrib):
     return y
 
 
+def route(params, xt, cfg: ModelConfig):
+    """(T, d) tokens -> (probs (T, E), gate_vals (T, k), expert_ids (T,
+    k)), all f32 but the ids: the router's scores over the experts (the
+    softmax, or the sigmoid scores), each token's k weights and experts
+    in selection order."""
+    m = cfg.moe
+    # the router is an ungated f32 matmul (the JAX package promotes
+    # bf16 @ f32 to f32; torch wants both operands in f32)
+    logits = xt.float() @ params["router"].float()           # (T, E)
+    if m.scoring == "sigmoid":
+        probs = torch.sigmoid(logits)
+        choice = probs + params["score_bias"].float()
+    elif m.scoring == "softmax":
+        probs = choice = torch.softmax(logits, dim=-1)
+    else:
+        raise ValueError(f"unknown MoE scoring {m.scoring!r}")
+    expert_ids = torch.topk(choice, m.top_k, dim=-1, sorted=True)[1]
+    gate_vals = torch.gather(probs, 1, expert_ids)
+    total = gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    gate_vals = gate_vals / total
+    if m.routed_scale != 1.0:
+        gate_vals = gate_vals * m.routed_scale
+    return probs, gate_vals, expert_ids
+
+
 def moe_apply(params, x, cfg: ModelConfig, plan=None, *,
               force_buffered: bool = False):
     """x: (b, l, d) -> (y, aux_loss).
@@ -85,13 +120,7 @@ def moe_apply(params, x, cfg: ModelConfig, plan=None, *,
     C = capacity(cfg, T)
 
     with spans.span("moe.router"):
-        # the router is an ungated f32 matmul (the JAX package promotes
-        # bf16 @ f32 to f32; torch wants both operands in f32)
-        logits = xt.float() @ params["router"].float()       # (T, E)
-        probs = torch.softmax(logits, dim=-1)
-        gate_vals, expert_ids = torch.topk(probs, k, dim=-1, sorted=True)
-        total = gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
-        gate_vals = gate_vals / total
+        probs, gate_vals, expert_ids = route(params, xt, cfg)
         w = gate_vals.to(x.dtype)
 
     with spans.span("moe.experts"):

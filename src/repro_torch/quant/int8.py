@@ -109,6 +109,7 @@ def planned_linear(x, w_q, w_scale, use_cim_path: bool):
 # biases, convs, router and the embedding gather stay in float.
 PROJECTION_WEIGHT_NAMES = frozenset({
     "wq", "wk", "wv", "wo",                      # attention projections
+    "wkv_a", "wkv_b",                            # latent attention's
     "w_gate", "w_up", "w_down",                  # dense MLP / MoE experts
     "w_z", "w_x", "w_B", "w_C", "w_dt",          # mamba in-projections
     "out_proj",                                  # mamba out-projection

@@ -52,6 +52,7 @@ from ..core.planner import plan_workload_by_phase
 from ..core.sweep import default_engine, measured_cache_delta
 from ..models import decode_step, init_cache
 from ..models.layers import route_trace
+from ..models.model import with_absorbed
 from ..quant import (PRECISIONS, KernelPlanTable,
                      quantize_model_params_lowbit, strip_model_prefix)
 from .graphs import StepGraph, leaves
@@ -119,6 +120,9 @@ class DecodeCore:
     label onto the standard path — the parity baseline for the gated
     program.  An unknown precision raises ValueError.
 
+    A model with latent attention gets its absorbed decode operands
+    (W_UK, W_UV from W_kvb, `models.model.with_absorbed`) once, here.
+
     `device` defaults to "cuda"; the params must already live there (a
     CPU run passes device="cpu" explicitly)."""
     cfg: ModelConfig
@@ -180,6 +184,7 @@ class DecodeCore:
                                        else self.plan_table)
             self.params = quantize_model_params_lowbit(self.params,
                                                        self.precision)
+        self.params = with_absorbed(self.params, self.cfg)
 
     # --- planner plumbing ----------------------------------------------
 

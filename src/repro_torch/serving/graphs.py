@@ -64,7 +64,7 @@ capture_lock = threading.Lock()
 # kernel wrappers (attributes of repro_torch.kernels) whose counters a
 # replay credits
 COUNTED_KERNELS = ("int8_gemm", "flash_attention", "decode_attention",
-                   "paged_decode_attention")
+                   "paged_decode_attention", "paged_mla_decode")
 
 
 def _wrappers():

@@ -218,7 +218,7 @@ class ContinuousBatchingEngine:
         self.block_size = block_size
         self.record_logits = record_logits
         self.clock = clock
-        self.needs_kv = any(s.mixer == "attn"
+        self.needs_kv = any(s.mixer in ("attn", "mla")
                             for s in period_slots(core.cfg))
         self.max_blocks = max(1, math.ceil(max_len / block_size))
         if n_kv_blocks is None:

@@ -47,7 +47,9 @@ from repro_torch.kernels import (decode_attention, decode_attention_check,
                                  flash_attention, flash_attention_check,
                                  flash_attention_ref, int8_gemm,
                                  int8_gemm_ref, ops, paged_decode_attention,
-                                 sweep_eval, sweep_eval_ref)
+                                 paged_mla_decode, sweep_eval,
+                                 sweep_eval_ref)
+from repro_torch.kernels.mla_decode import mla_decode_check
 from repro_torch.models import forward, init
 from repro_torch.quant import KernelPlanTable, quantize_model_params
 
@@ -707,6 +709,222 @@ def test_paged_wrapper_rejects_bad_inputs(cuda):
                                vp.view(-1, 4, 2, 32), tables, lengths)
     with pytest.raises(ValueError, match="share a device"):
         paged_decode_attention(q, kp, vp, tables.cpu(), lengths)
+
+
+# --- the paged MLA decode kernel --------------------------------------------
+# (b, S, bs, H, lengths): the engine cell (128 slots x 512, blocks of 16,
+# 16 heads) at ragged chat lengths and at 512 throughout; then few slots
+# (several splits and the combine kernel), a long strip in blocks of 64,
+# fewer heads in blocks of 8
+
+MLA_CASES = [(128, 512, 16, 16, "chat"), (128, 512, 16, 16, "full"),
+             (2, 512, 16, 16, "chat"), (4, 4096, 64, 16, "chat"),
+             (3, 256, 8, 8, "chat")]
+
+
+def _mla_inputs(case, device, seed=0):
+    """q (b, H, 576), a shuffled latent pool with a spare block, tables
+    (an idle last slot aliasing the first one's blocks) and lengths:
+    edges (0, 1, a tile's, a block's, S) then chat-like ones, log-normal
+    around 170 positions, or S for every slot."""
+    b, S, bs, H, kind = case
+    mb = S // bs
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    n_blocks = b * mb + 3
+    q = torch.randn(b, H, 576, generator=gen).to(torch.bfloat16).to(device)
+    pool = torch.randn(n_blocks, bs, 576, generator=gen).to(
+        torch.bfloat16).to(device)
+    tables = torch.randperm(n_blocks, generator=gen)[:b * mb].view(b, mb)
+    if b > 1:
+        tables[-1] = tables[0]
+    if kind == "full":
+        lengths = [S] * b
+    else:
+        edge = [0, 1, 31, 32, 33, bs, S - 1, S]
+        chat = (170 * torch.exp(torch.randn(b, generator=gen))).clamp(
+            8, S).long().tolist()
+        lengths = [edge[i] if i < len(edge) and i < b - 1 else chat[i]
+                   for i in range(b)]
+    scale = float(np.float32(192 ** -0.5))
+    return (q, pool, tables.to(torch.int32).to(device),
+            torch.tensor(lengths, device=device), scale)
+
+
+@pytest.mark.parametrize("case", MLA_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_mla_kernel_matches_plain(cuda, case):
+    args = _mla_inputs(case, cuda, seed=case[1] + case[3])
+    before = (paged_mla_decode.launches,
+              paged_mla_decode.launches_by_design["mla"])
+    got = paged_mla_decode(*args)
+    assert (paged_mla_decode.launches,
+            paged_mla_decode.launches_by_design["mla"]) == (
+        before[0] + 1, before[1] + 1)
+    assert got.shape == args[0].shape[:2] + (512,)
+    _attn_ok(mla_decode_check(got, *args))
+    assert torch.equal(got, paged_mla_decode(*args))     # no atomics
+    if case[4] == "chat":
+        assert not got[0].any()                          # length 0
+
+
+def test_mla_kernel_in_a_captured_graph(cuda):
+    """The call captured in a CUDA graph (`serving.graphs.StepGraph`):
+    each replay reads the lengths, tables and q copied in for it, equals
+    the eager call bit for bit, and credits one launch."""
+    from repro_torch.serving.graphs import StepGraph
+    q, pool, tables, lengths, scale = _mla_inputs(MLA_CASES[0], cuda, 3)
+    graph = StepGraph(lambda a, t, n: paged_mla_decode(a, pool, t, n, scale))
+    for seed in range(3):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        qi = torch.randn(q.shape, generator=gen, device=cuda).to(q.dtype)
+        li = torch.randint(1, 513, lengths.shape, generator=gen,
+                           device=cuda)
+        ti = tables.roll(seed, 0)
+        before = paged_mla_decode.launches
+        got = graph(qi, ti, li)
+        # the first call also warms the step up, for real, before capture
+        assert paged_mla_decode.launches == before + 1 + (seed == 0), seed
+        assert torch.equal(got, paged_mla_decode(qi, pool, ti, li, scale))
+        _attn_ok(mla_decode_check(got, qi, pool, ti, li, scale))
+    assert graph.captures == 1
+
+
+def test_mla_wrapper_rejects_bad_inputs(cuda):
+    """On CUDA tensors the wrapper launches or raises: f32, a row not 576
+    wide or V not its first 512 columns, more than 16 heads, blocks not a
+    multiple of 8, mixed devices, and autograd."""
+    q, pool, tables, lengths, scale = _mla_inputs((2, 64, 16, 16, "full"),
+                                                  cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        paged_mla_decode(q.float(), pool.float(), tables, lengths, scale)
+    with pytest.raises(ValueError, match="rows of 576"):
+        paged_mla_decode(q[..., :512].contiguous(),
+                         pool[..., :512].contiguous(), tables, lengths,
+                         scale)
+    with pytest.raises(ValueError, match="rows of 576"):
+        paged_mla_decode(q, pool, tables, lengths, scale, v_dim=256)
+    with pytest.raises(ValueError, match="1 to 16 heads"):
+        paged_mla_decode(torch.cat([q, q[:, :1]], 1), pool, tables, lengths,
+                         scale)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        paged_mla_decode(q, pool.view(-1, 4, 576), tables, lengths, scale)
+    with pytest.raises(ValueError, match="share a device"):
+        paged_mla_decode(q, pool, tables.cpu(), lengths, scale)
+    with pytest.raises(RuntimeError, match="no backward"):
+        paged_mla_decode(q.clone().requires_grad_(), pool, tables, lengths,
+                         scale)
+
+
+def _mla_model(cuda, moe=True):
+    """The Moonlight block at its latent attention's published widths (16
+    heads, latent 512, rope 64, nope and v 128) on a narrow residual and
+    few layers, bf16: one leading dense layer and two MoE layers, or
+    (moe=False) three dense layers."""
+    import dataclasses
+    from repro_torch.configs.registry import MOONLIGHT_16B_A3B
+    from repro_torch.serving import DecodeCore
+    cfg = dataclasses.replace(reduced(MOONLIGHT_16B_A3B),
+                              mla=MOONLIGHT_16B_A3B.mla, n_heads=16,
+                              n_kv_heads=16, d_model=256)
+    if not moe:
+        cfg = dataclasses.replace(cfg, family="dense", moe=None)
+    rc = RunConfig(attn_impl="naive", remat=False)
+    params = init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                  device="cuda")
+    for leaf in params["slots"][0].get("moe", {}).get("score_bias", []):
+        leaf.normal_(0.0, 0.1)
+    core = DecodeCore(cfg, rc, params, quantize=True, plan_batch=128,
+                      plan_max_len=64, device="cuda")
+    return cfg, rc, core
+
+
+def test_captured_mla_step_credits_one_launch_per_layer(cuda, monkeypatch):
+    """The engine cell's step (128 slots, blocks of 16) over the latent
+    pool, captured: each replay credits one MLA launch per layer and no
+    other attention kernel, gathers no strip, and equals the eager step
+    bit for bit."""
+    from repro_torch.models import clone_cache, decode_step, init_paged_cache
+    from repro_torch.models import model as tm
+    cfg, rc, core = _mla_model(cuda)
+    layers = cfg.n_layers
+
+    def no_gather(*a, **kw):
+        raise AssertionError("the kernel route gathered a strip")
+    monkeypatch.setattr(tm, "_paged_view", no_gather)
+    slots, mb = 128, 4
+    pools = init_paged_cache(cfg, rc, slots, slots * mb, 16, device="cuda")
+    assert tuple(pools[0]["kv"].shape) == (layers, slots * mb, 16, 576)
+    copy = clone_cache(pools)
+    tables = torch.randperm(slots * mb, device="cuda").to(
+        torch.int32).view(slots, mb)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    active = torch.arange(slots, device="cuda") % 5 != 0
+    step = core.batch_step
+    first = paged_mla_decode.launches
+    for t in range(6):
+        tok = torch.randint(0, cfg.vocab, (slots, 1), generator=gen,
+                            device="cuda")
+        pos = ((torch.arange(slots, device="cuda") * 7 + t) % (mb * 16)).to(
+            torch.int32)
+        if t == 1:
+            before = (paged_mla_decode.launches,
+                      paged_decode_attention.launches,
+                      decode_attention.launches)
+        got, pools = step(pools, tok, pos, active, tables)
+        with torch.inference_mode():
+            want, copy = decode_step(core.params, copy, tok, pos, cfg, rc,
+                                     plan=core.plan_table, active=active,
+                                     block_tables=tables)
+        assert torch.equal(got, want), t
+    assert step.captures == 1
+    assert before[0] - first == 3 * layers
+    assert (paged_mla_decode.launches - before[0],
+            paged_decode_attention.launches - before[1],
+            decode_attention.launches - before[2]) == (2 * 5 * layers, 0, 0)
+
+
+def test_mla_kernel_route_matches_plain_route(cuda, monkeypatch):
+    """Greedy steps at ragged lengths through the kernel route against
+    the plain route (`latent_attend` over the gathered strips), both fed
+    the kernel route's tokens: logits within 2**-6 of max|ref| (the
+    model's bf16 tolerance) and the same top token wherever the plain
+    route's top-two gap exceeds twice that.  Dense layers: a router on a
+    near-tie would turn a bf16 rounding into another expert's output."""
+    from repro_torch.models import clone_cache, decode_step, init_paged_cache
+    from repro_torch.models import model as tm
+    cfg, rc, core = _mla_model(cuda, moe=False)
+    b, mb, bs = 4, 4, 16
+    pools = init_paged_cache(cfg, rc, b, b * mb, bs, device="cuda")
+    plain = clone_cache(pools)
+    tables = torch.arange(b * mb, dtype=torch.int32,
+                          device="cuda").view(b, mb).flip(1)
+    pos0 = torch.tensor([0, 5, 17, 20], dtype=torch.int32, device="cuda")
+    active = torch.ones(b, dtype=torch.bool, device="cuda")
+    tok = torch.tensor([[1], [2], [3], [4]], device="cuda")
+    fits = tm.paged_kernel_fits
+    agree = compared = 0
+    for t in range(30):
+        pos = pos0 + t
+        with torch.inference_mode():
+            before = paged_mla_decode.launches
+            got, pools = decode_step(core.params, pools, tok, pos, cfg, rc,
+                                     plan=core.plan_table, active=active,
+                                     block_tables=tables)
+            assert paged_mla_decode.launches == before + cfg.n_layers
+            monkeypatch.setattr(tm, "paged_kernel_fits", lambda *a: False)
+            want, plain = decode_step(core.params, plain, tok, pos, cfg, rc,
+                                      plan=core.plan_table, active=active,
+                                      block_tables=tables)
+            monkeypatch.setattr(tm, "paged_kernel_fits", fits)
+        g, w = got.float()[:, 0], want.float()[:, 0]
+        tol = 2.0 ** -6 * w.abs().max().item()
+        assert (g - w).abs().max().item() <= tol, t
+        top2 = w.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        agree += int((g.argmax(-1) == w.argmax(-1))[clear].sum())
+        compared += int(clear.sum())
+        tok = g.argmax(-1, keepdim=True)
+    assert agree == compared and compared > 0
 
 
 def _attention_layers(cfg) -> int:
