@@ -156,12 +156,12 @@ compressed all-reduce).  In order it:
 19. serves qwen2-moe-a2.7b at full width (24 layers, 60 experts top-4 + 4
    shared, seed 0, INT8, gated, batch 8, 16 + 16 steps): the route report
    (every gated 2-D label on the kernel, the experts on the dequant
-   einsums), int8_gemm launches equal to the gated calls of each phase's
+   route: the grouped expert kernels, timed in phase 34), int8_gemm
+   launches equal to the gated calls of each phase's
    table times its steps, all on design B, one capture per step,
    both steps bit for bit against the eager step on a clone of the
    cache, the ungated session (0 launches, first-step logits within
-   LOGIT_TOL), ms/step, tokens/s, peak memory and a traced step; then
-   times one layer's expert contractions alone (x 24) against it;
+   LOGIT_TOL), ms/step, tokens/s, peak memory and a traced step;
 20. runs its (1, 2048) prefill forward (buffered dispatch) with
    attn_impl="pallas": 24 flash launches on "wgmma", int8_gemm launches
    per the route trace and `plan_gemm`'s designs, logits against the
@@ -280,7 +280,18 @@ compressed all-reduce).  In order it:
    slots) through the continuous engine, its captured steps crediting one
    MLA launch per layer a step and no other attention kernel.
    `python3 chip_smoke.py --mla` runs this phase alone;
-34. prints one JSON line of kernel numbers, the card line, and last
+34. holds the grouped INT8 expert kernels (`moe_phase()`): one MoE layer
+   at each MoE cell's experts and batch (qwen2-moe-a2.7b, 32 tokens top-4
+   of 60; moonlight-16b-a3b, 128 tokens top-6 of 64), routed by a seeded
+   router through the model's `route` (the touched-expert share printed),
+   element by element against `moe_experts_ref` (MOE_TOL_DOC), timed
+   beside the touched experts' bytes bound, the plain version and the
+   three dequant einsums the port no longer calls there (`library_ms`);
+   then each model at full size (INT8, its cell's capacity and slots)
+   through the continuous engine, its captured steps crediting two
+   expert launches per MoE layer.  `python3 chip_smoke.py --moe` runs
+   this phase alone;
+35. prints one JSON line of kernel numbers, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Phase 9 also holds the graphs: the serve's steps replay CUDA graphs
@@ -306,7 +317,8 @@ report; the qwen2-7b,
 qwen2-moe-a2.7b, musicgen-large and vlm prefill forwards for
 flash_attention; one call of the public wrapper for decode_attention;
 phase 16 (a)'s engine run and the families' engine runs for
-paged_decode_attention; phase 33's engine run for paged_mla_decode),
+paged_decode_attention; phase 33's engine run for paged_mla_decode;
+phase 34's engine runs for moe_experts),
 counted from 0 just before that path ran.
 
 Any failed phase raises and exits non-zero; so does a machine with no
@@ -1024,7 +1036,6 @@ def families(torch, card: str) -> list[dict]:
                                     init_cache, n_periods, period_slots,
                                     route_trace)
     from repro_torch.models.layers import CIM_ROUTE
-    from repro_torch.quant import dequant_contract
     from repro_torch.serving import (ContinuousBatchingEngine, DecodeCore,
                                      ServeSession, make_prefill,
                                      make_serve_step, synthetic_requests)
@@ -1487,31 +1498,6 @@ def families(torch, card: str) -> list[dict]:
 
     # --- 19.-21. qwen2-moe-a2.7b: serve, prefill forward, engine ---------------
     moe_sess, moe_serve = serve(moe_cfg, calls[MOE_ARCH], MOE_ARCH)
-    x = torch.randn((BATCH, moe_cfg.d_model), generator=torch.Generator(
-        device="cuda").manual_seed(4), device="cuda").to(torch.bfloat16)
-    moe0 = {k: {"q": v["q"][0], "scale": v["scale"][0]}
-            for k, v in moe_sess.params["slots"][0]["moe"].items()
-            if k in ("w_gate", "w_up", "w_down")}
-
-    def experts():
-        g = dequant_contract(x, moe0["w_gate"]["q"], moe0["w_gate"]["scale"],
-                             "td,edf->etf")
-        u = dequant_contract(x, moe0["w_up"]["q"], moe0["w_up"]["scale"],
-                             "td,edf->etf")
-        return dequant_contract(g * u, moe0["w_down"]["q"],
-                                moe0["w_down"]["scale"], "etf,efd->etd")
-    L_moe = n_periods(moe_cfg)
-    ex_ms = L_moe * time_ms(torch, lambda i: experts(), 1)
-    ex_dev = L_moe * device_ms(torch, lambda i: experts(), 1)
-    ex_bytes = sum(moe0[w]["q"].numel() for w in moe0) * L_moe
-    print(f"{MOE_ARCH} expert contractions of one decode step (the T <= C "
-          f"fast path's three dequant einsums per layer, timed alone on "
-          f"layer 0, x {L_moe} layers): {ex_ms!r} ms by CUDA events, "
-          f"{ex_dev!r} ms device time; they read {ex_bytes / 1e9!r} GB of "
-          f"int8 experts a step, {1e3 * ex_bytes / HBM_BYTES_PER_S!r} ms at "
-          f"the HBM rate; share of the traced step's device busy "
-          f"{ex_dev / moe_serve['busy_ms_per_step'] if moe_serve['busy_ms_per_step'] else float('nan'):.1%} [{card}]")
-    del moe0, x
     moe_core, prompt_, lp, moe_pre = prefill_forward(
         moe_cfg, calls[MOE_ARCH], moe_sess.params, MOE_ARCH,
         n_periods(moe_cfg))
@@ -2012,6 +1998,234 @@ def mla_phase(torch, card: str) -> list[dict]:
                 f"full_length: every slot at S); launches counted over the "
                 f"{MLA_ARCH} engine run ({eng['steps']} steps x "
                 f"{eng['layers']} layers)"}]
+
+
+# --- the grouped INT8 expert kernels (phase 34) -------------------------------
+
+# the two MoE cells: (arch, slots, capacity factor as the cell's config)
+MOE_CELLS = (("qwen2-moe-a2.7b", 32, 15.0), ("moonlight-16b-a3b", 128, 11.0))
+MOE_ROUTINGS = 3            # seeded routings timed per cell
+
+
+def moe_cell_cfg(arch: str, cf: float):
+    from repro_torch.configs import get
+    cfg = get(arch)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf))
+
+
+def moe_layers(cfg) -> int:
+    from repro_torch.models import n_periods, period_slots
+    return n_periods(cfg) * sum(s.ffn == "moe" for s in period_slots(cfg))
+
+
+def time_moe(torch, cfg, T: int, seed: int) -> dict:
+    """One MoE layer's routed experts at the cell's width and batch: INT8
+    leaves from the seed, T bf16 tokens routed by a seeded router through
+    the model's own `route` (softmax, or sigmoid with the selection
+    bias); the kernels held against moe_experts_ref (MOE_TOL_DOC), then
+    timed (CUDA events `ms`, profiler device time `device_ms`) beside the
+    touched experts' bytes bound, the plain version and the yardstick
+    (`library_ms`): the three dequant einsums of every expert over every
+    token, the route the port no longer calls here."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.moe_experts import (MOE_TOL_DOC, moe_experts,
+                                                 moe_experts_check,
+                                                 moe_experts_ref)
+    from repro_torch.models.moe import route
+    from repro_torch.quant.int8 import dequant_contract
+    m = cfg.moe
+    E, k, d, f = m.n_experts, m.top_k, cfg.d_model, m.expert_d_ff
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def leaf(a, b):
+        q = torch.randint(-127, 128, (E, a, b), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        sc = (1.0 + torch.rand((E, b), generator=gen, device="cuda")) / (
+            127 * a ** 0.5)
+        return {"q": q, "scale": sc}
+    wg, wu, wd = leaf(d, f), leaf(d, f), leaf(f, d)
+    params = {"router": torch.randn((d, E), generator=gen, device="cuda")
+              / d ** 0.5,
+              "score_bias": 0.1 * torch.randn(E, generator=gen,
+                                              device="cuda")}
+    x = torch.randn((T, d), generator=gen, device="cuda").to(torch.bfloat16)
+    _, _, ids = route(params, x, cfg)
+    touched = int(torch.unique(ids).numel())
+    before = dict(moe_experts.launches_by_design)
+    got = moe_experts(x, ids, wg, wu, wd)
+    design = changed(moe_experts, before)
+    out = moe_experts_check(got, x, ids, wg, wu, wd)
+    out["repeatable"] = bool(torch.equal(got, moe_experts(x, ids, wg, wu,
+                                                          wd)))
+
+    def library(i):
+        g = F.silu(dequant_contract(x, wg["q"], wg["scale"], "td,edf->etf"))
+        u = dequant_contract(x, wu["q"], wu["scale"], "td,edf->etf")
+        eo = dequant_contract(g * u, wd["q"], wd["scale"], "etf,efd->etd")
+        return torch.gather(eo.transpose(0, 1), 1,
+                            ids[:, :, None].expand(T, k, d))
+    lib_err = (library(0).float() - got.float()).abs().max().item()
+    # bytes each kernel needs: the touched experts' int8 weights and
+    # scales, x read, h written and read, the output written
+    moved = (touched * (3 * d * f + 4 * (2 * f + d)) + T * d * 2
+             + 2 * T * k * f * 2 + T * k * d * 2)
+    out.update({
+        "design": design, "T": T, "top_k": k, "experts": E,
+        "touched": touched, "touched_share": touched / E,
+        "ms": time_ms(torch, lambda i: moe_experts(x, ids, wg, wu, wd), 1),
+        "device_ms": device_ms(
+            torch, lambda i: moe_experts(x, ids, wg, wu, wd), 1),
+        "plain_ms": time_ms(torch, lambda i: moe_experts_ref(
+            x, ids, wg, wu, wd), 1),
+        "library_ms": time_ms(torch, library, 1),
+        "library_device_ms": device_ms(torch, library, 1),
+        "bytes_ms": 1e3 * moved / HBM_BYTES_PER_S,
+        "ops_ms": 1e3 * 2 * T * k * 3 * d * f / BF16_OPS_PER_S})
+    out["bound_ms"] = max(out["bytes_ms"], out["ops_ms"])
+    out["line"] = (
+        f"moe_experts at {cfg.name}'s experts (E {E}, top-{k}, d {d}, f "
+        f"{f}), T {T}, seed {seed}: {touched} of {E} experts touched "
+        f"({touched / E:.1%}), designs {design}: max|d|="
+        f"{out['max_abs_err']!r}, max|d|/bound={out['worst']!r}, max|d|/"
+        f"max|ref| {out['rel_err']!r}, rms(d)/rms(ref) {out['rms_rel']!r} "
+        f"{'ok' if out['ok'] else 'FAIL'} "
+        f"({MOE_TOL_DOC}); kernel {out['ms']!r} ms a layer, plain "
+        f"{out['plain_ms']!r} ms, library_ms {out['library_ms']!r} ms (the "
+        f"three dequant einsums over every expert and token, max|d| vs the "
+        f"kernel {lib_err!r}); bound {out['bound_ms']!r} ms (bytes "
+        f"{out['bytes_ms']!r}, operations {out['ops_ms']!r}), "
+        f"{out['bound_ms'] / out['ms']:.1%} of bound (CUDA events); device "
+        f"times: kernel {out['device_ms']!r} ms "
+        f"({out['bound_ms'] / out['device_ms']:.1%} of bound), library "
+        f"{out['library_device_ms']!r} ms")
+    del wg, wu, wd, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_engine(torch, card: str, arch: str, slots: int, cf: float) -> dict:
+    """`arch` at full size, INT8 and planned, capacity as its cell's (every
+    step T <= C), through the continuous engine on `slots` slots x 512
+    (blocks of 16): one warm-up request to capture the step, then `slots`
+    ragged requests all at once, the expert counts set to 0 just before.
+    Every replayed step must credit two moe_experts launches per MoE
+    layer, one per kernel."""
+    import gc
+
+    from repro_torch.configs import RunConfig
+    from repro_torch.kernels import moe_experts
+    from repro_torch.models import init
+    from repro_torch.serving import (ContinuousBatchingEngine, DecodeCore,
+                                     synthetic_requests)
+    cfg = moe_cell_cfg(arch, cf)
+    S, bs = 512, 16
+    rc = RunConfig(attn_impl="naive", remat=False)
+    t0 = time.perf_counter()
+    params = init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                  device="cuda")
+    core = DecodeCore(cfg, rc, params, quantize=True, plan_batch=slots,
+                      plan_max_len=S, device="cuda")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = ContinuousBatchingEngine(core, n_slots=slots, max_len=S,
+                                   block_size=bs)
+    eng.run(synthetic_requests(cfg, 2, seed=1, prompt_len=(2, 2),
+                               new_tokens=(2, 2)), None)      # captures
+    setup = time.perf_counter() - t0
+    steps0 = eng.steps
+    reqs = synthetic_requests(cfg, slots, seed=0, prompt_len=(8, 32),
+                              new_tokens=(8, 32))
+    reset_counts(moe_experts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(reqs, None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_steps = eng.steps - steps0
+    layers = moe_layers(cfg)
+    done = eng.completed[-slots:]
+    out = {"arch": arch, "launches": moe_experts.launches,
+           "by_design": dict(moe_experts.launches_by_design),
+           "steps": n_steps, "moe_layers": layers,
+           "ms_per_step": 1e3 * wall / max(1, n_steps)}
+    print(f"{arch} engine, {slots} requests all at once on {slots} slots x "
+          f"{S} (capacity factor {cf}): {len(done)} done, {n_steps} steps in "
+          f"{wall!r} s ({out['ms_per_step']!r} ms/step, set-up {setup:.1f} "
+          f"s); moe_experts launches {out['launches']} by design "
+          f"{out['by_design']} (expected 2 x {n_steps} steps x {layers} MoE "
+          f"layers = {2 * n_steps * layers}) [{card}]")
+    if out["launches"] != 2 * n_steps * layers or any(
+            c != n_steps * layers for c in out["by_design"].values()):
+        raise RuntimeError(f"{arch} engine launched the expert kernels "
+                           f"{out['launches']} times, expected "
+                           f"{2 * n_steps * layers}")
+    if len(done) != slots or any(len(r.tokens) != r.max_new_tokens
+                                 for r in done):
+        raise RuntimeError(f"{arch} engine did not complete every request "
+                           f"with its max_new_tokens")
+    del eng, core
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase(torch, card: str) -> list[dict]:
+    """Phase 34 (see the module docstring).  Returns its entries of the
+    kernels line, one per cell."""
+    t_phase = time.perf_counter()
+    entries = []
+    for arch, slots, cf in MOE_CELLS:
+        cfg = moe_cell_cfg(arch, cf)
+        runs = []
+        for seed in range(MOE_ROUTINGS):
+            t = time_moe(torch, cfg, slots, seed=seed)
+            print(f"{t['line']} [{card}]")
+            if not (t["ok"] and t["repeatable"]
+                    and t["design"] == "gate_up+down"):
+                raise RuntimeError("moe_experts disagrees with its plain "
+                                   "version, is not repeatable or ran "
+                                   "other kernels")
+            runs.append(t)
+        eng = moe_engine(torch, card, arch, slots, cf)
+        layers = eng["moe_layers"]
+        mean = {key: sum(r[key] for r in runs) / len(runs)
+                for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                            "library_device_ms", "bound_ms", "bytes_ms",
+                            "ops_ms", "touched_share")}
+        print(f"moe_experts, {arch}: per layer over {MOE_ROUTINGS} routings "
+              f"{mean['device_ms']!r} ms device ({mean['ms']!r} ms CUDA "
+              f"events) against a bound of {mean['bound_ms']!r} ms "
+              f"({mean['bound_ms'] / mean['device_ms']:.1%}); x {layers} "
+              f"layers = {layers * mean['device_ms']!r} ms a step (library "
+              f"{layers * mean['library_device_ms']!r} ms) [{card}]")
+        entries.append({
+            "name": "moe_experts", "route": "cuda",
+            "path": f"models/moe.py:moe_apply's T <= C path in the {arch} "
+                    f"engine's decode step",
+            "source": "src/repro_torch/kernels/csrc/moe_experts.cu",
+            "replaces": "none: the JAX package leaves the experts to XLA "
+                        "(three dequant einsums; moe_experts_ref is the "
+                        "plain version)",
+            "launches": eng["launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in runs),
+            "rel_err": max(r["rel_err"] for r in runs),
+            "rms_rel": max(r["rms_rel"] for r in runs),
+            "ms": mean["ms"], "device_ms": mean["device_ms"],
+            "plain_ms": mean["plain_ms"], "bound_ms": mean["bound_ms"],
+            "bound_by": ("bytes" if mean["bytes_ms"] >= mean["ops_ms"]
+                         else "operations"),
+            "library_ms": mean["library_ms"],
+            "library_device_ms": mean["library_device_ms"],
+            "touched_share": mean["touched_share"],
+            "design": "gate_up+down",
+            "work": f"one MoE layer at T {slots}, the mean of "
+                    f"{MOE_ROUTINGS} seeded routings; launches counted over "
+                    f"the {arch} engine run ({eng['steps']} steps x {layers} "
+                    f"MoE layers x 2)"})
+    print(f"moe: phase 34 took {time.perf_counter() - t_phase:.1f} s")
+    return entries
 
 
 # --- the paper's experiments (phase 29) --------------------------------------
@@ -3005,6 +3219,11 @@ def main() -> int:
     if sys.argv[1:] == ["--mla"]:
         mla_kernels = mla_phase(torch, card_line())
         print(json.dumps({"kernels": mla_kernels}))
+        print(card_line())
+        return 0
+    if sys.argv[1:] == ["--moe"]:
+        moe_kernels = moe_phase(torch, card_line())
+        print(json.dumps({"kernels": moe_kernels}))
         print(card_line())
         return 0
     import numpy as np
@@ -4325,8 +4544,9 @@ def main() -> int:
                                  golden_front)      # phase 31
     dry_run = dryrun_phase(torch, card)             # phase 32
     mla_kernels = mla_phase(torch, card)            # phase 33
+    moe_kernels = moe_phase(torch, card)            # phase 34
 
-    # --- 34. result lines ----------------------------------------------------
+    # --- 35. result lines ----------------------------------------------------
     kernels = [{
         "name": "int8_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_gemm.cu",
@@ -4569,7 +4789,7 @@ def main() -> int:
                 f"plus both gloo ranks' shards of the golden plan"}]
     kernels += fam_kernels
     kernels.append(dry_run["block"])
-    kernels += mla_kernels
+    kernels += mla_kernels + moe_kernels
     for entry in kernels:               # JSON has no NaN: not measured
         for key in ("device_ms", "library_device_ms"):
             if key in entry and not math.isfinite(entry[key]):

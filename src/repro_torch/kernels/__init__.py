@@ -16,6 +16,9 @@
 * `paged_mla_decode` — the engine's latent (MLA) decode attention over a
   latent block pool, 16 heads on one 576-wide row per position (no TPU
   counterpart: the JAX package has no latent attention).
+* `moe_experts` — the MoE decode step's grouped INT8 experts: each routed
+  expert's int8 weights read once, run over its routed tokens only (no
+  TPU counterpart: the JAX package leaves the experts to XLA's einsums).
 
 `autotune` reports the blocks, shared memory and grid of the GEMM kernel
 `plan_gemm` picks for a shape (`autotune_report`).  `csrc/span_mark.cu`
@@ -26,8 +29,8 @@ built by `build.py` when a span recorder is first armed on a card.
 layouts.  `build.py` compiles each CUDA source with nvcc at first use on a
 machine with a card; importing this package compiles nothing.  As
 attributes of the package, the four kernel names,
-`paged_decode_attention` and `paged_mla_decode` are the wrapper
-functions; their modules are
+`paged_decode_attention`, `paged_mla_decode` and `moe_experts` are the
+wrapper functions; their modules are
 reached as `repro_torch.kernels.<name>` through the import system
 (`importlib.import_module`).
 """
@@ -39,6 +42,7 @@ from .flash_attention import (flash_attention, flash_attention_check,
                               flash_attention_ref)
 from .int8_gemm import GemmPlan, int8_gemm, int8_gemm_ref, plan_gemm
 from .mla_decode import paged_mla_decode, paged_mla_decode_ref
+from .moe_experts import moe_experts, moe_experts_ref
 from .sweep_eval import (SWEEP_OUT_FIELDS, kernel_status, sweep_eval,
                          sweep_eval_ref)
 
@@ -48,6 +52,6 @@ __all__ = ["ops", "int8_gemm", "int8_gemm_ref", "plan_gemm",
            "decode_attention", "decode_attention_ref",
            "decode_attention_check", "paged_decode_attention",
            "paged_decode_attention_ref", "paged_mla_decode",
-           "paged_mla_decode_ref",
+           "paged_mla_decode_ref", "moe_experts", "moe_experts_ref",
            "SWEEP_OUT_FIELDS", "kernel_status", "sweep_eval",
            "sweep_eval_ref"]

@@ -91,9 +91,12 @@ def linear(w, x, label: str, plan=None, spec: str | None = None):
     other quantized projection contracts against the raw weight in
     x.dtype with the scale in the epilogue.  `spec` is an optional einsum
     spec for a stacked weight (the MoE experts' `"td,edf->etf"`,
-    `"ecd,edf->ecf"`, ...): the kernel takes only plain 2-D matmuls, so a
-    spec or a weight that is not 2-D records the dequant route even when
-    its label gates on.  Unknown labels raise KeyError from the plan
+    `"ecd,edf->ecf"`, ...): the INT8 GEMM kernel takes only plain 2-D
+    matmuls, so a spec or a weight that is not 2-D records the dequant
+    route even when its label gates on.  (On the card, the MoE decode
+    step's INT8 experts bypass `linear` for the grouped expert kernels,
+    `models/moe.py`, and record the same dequant routes: the function is
+    the dequant route's.)  Unknown labels raise KeyError from the plan
     table: model-side label drift must not silently disable gating."""
     # an expert contraction is charged to moe_apply's "moe.experts"
     with (spans.NO_SPAN if label in EXPERT_LABELS else spans.span("proj")):

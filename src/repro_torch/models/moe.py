@@ -15,15 +15,22 @@ run in f32.
 
 Decode exception, as in the JAX package: when the token count fits expert
 capacity (T <= C, always true for a decode micro-batch) no token can be
-dropped, so `moe_apply` runs every expert over every token with one
-batched contraction per weight and selects each token's top-k outputs.
+dropped.  There, INT8 experts of a bf16 step on the card run the grouped
+expert kernels (`kernels/moe_experts.py`, `csrc/moe_experts.cu`): each
+routed expert's int8 weights read once, over its routed tokens only, two
+launches a layer; every other case (float, INT4 or FP8 experts, f32 or
+CPU or meta tensors) runs every expert over every token with one batched
+contraction per weight and selects each token's top-k outputs, as the
+JAX package does.
 
-The expert weights are stacked (E, K, N) leaves, so they contract through
-`linear(..., spec=...)`: a quantized expert always takes the dequant
-route (the INT8 GEMM kernel takes plain 2-D matmuls only), as in the JAX
-package.  Each token's k weighted expert outputs are summed in k order,
-with no atomics, so a step replayed from a CUDA graph equals the eager
-step bit for bit.
+The expert weights are stacked (E, K, N) leaves.  Outside the kernel they
+contract through `linear(..., spec=...)`, which takes the dequant route
+for a quantized expert (the INT8 GEMM kernel takes plain 2-D matmuls
+only), as in the JAX package; the kernel computes that route's function
+(int8 weights decoded exactly, the scale after the f32 sum) and records
+the same three routes.  Each token's k weighted expert outputs are summed
+in k order, with no atomics, so a step replayed from a CUDA graph equals
+the eager step bit for bit.
 """
 from __future__ import annotations
 
@@ -32,8 +39,10 @@ import torch.nn.functional as F
 
 from .. import spans
 from ..configs.base import ModelConfig
+from ..kernels.moe_experts import moe_experts
 from ..sharding.constraints import put_rows
-from .layers import dense_init, linear, swiglu
+from .layers import (DEQUANT_ROUTE, EXPERT_LABELS, _record_route, dense_init,
+                     linear, swiglu)
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype, device="cuda"):
@@ -81,6 +90,22 @@ def _sum_over_k(contrib):
     return y
 
 
+def _grouped_kernel_takes(params, xt) -> bool:
+    """Whether the T <= C path runs the grouped expert kernels: INT8
+    expert leaves and bf16 tokens on a card."""
+    return (xt.is_cuda and xt.dtype == torch.bfloat16
+            and all(isinstance(params[n], dict) and "q" in params[n]
+                    for n in ("w_gate", "w_up", "w_down")))
+
+
+def _record_expert_routes() -> None:
+    """The grouped kernels' route records: the three expert labels on the
+    dequant route, whose function the kernels compute, with moe_apply as
+    the callsite (this frame stands where linear() does)."""
+    for label in EXPERT_LABELS:
+        _record_route(label, DEQUANT_ROUTE)
+
+
 def route(params, xt, cfg: ModelConfig):
     """(T, d) tokens -> (probs (T, E), gate_vals (T, k), expert_ids (T,
     k)), all f32 but the ids: the router's scores over the experts (the
@@ -125,16 +150,21 @@ def moe_apply(params, x, cfg: ModelConfig, plan=None, *,
 
     with spans.span("moe.experts"):
         if T <= C and not force_buffered:
-            # no expert can overflow: every expert over every token, then
-            # each token's top-k outputs
-            g = F.silu(linear(params["w_gate"], xt, "expert-gate", plan,
-                              spec="td,edf->etf"))
-            u = linear(params["w_up"], xt, "expert-up", plan,
-                       spec="td,edf->etf")
-            eout = linear(params["w_down"], g * u, "expert-down", plan,
-                          spec="etf,efd->etd")                  # (E, T, d)
-            sel = torch.gather(eout.transpose(0, 1), 1,
-                               expert_ids[:, :, None].expand(T, k, d))
+            # no expert can overflow: each token's k expert outputs
+            if _grouped_kernel_takes(params, xt):
+                _record_expert_routes()
+                sel = moe_experts(xt, expert_ids, params["w_gate"],
+                                  params["w_up"], params["w_down"])
+            else:
+                # every expert over every token, then the top-k outputs
+                g = F.silu(linear(params["w_gate"], xt, "expert-gate", plan,
+                                  spec="td,edf->etf"))
+                u = linear(params["w_up"], xt, "expert-up", plan,
+                           spec="td,edf->etf")
+                eout = linear(params["w_down"], g * u, "expert-down", plan,
+                              spec="etf,efd->etd")              # (E, T, d)
+                sel = torch.gather(eout.transpose(0, 1), 1,
+                                   expert_ids[:, :, None].expand(T, k, d))
             yt = _sum_over_k(sel * w[:, :, None])
         else:
             # position of each (token, k) assignment within its expert

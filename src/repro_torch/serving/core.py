@@ -353,7 +353,10 @@ class DecodeCore:
                      n_image_tokens: int = 0) -> dict:
         """label -> {route, use_cim, what, where} as the decode step runs
         them, from one step on "meta" tensors (shapes only, no compute,
-        no kernel launch)."""
+        no kernel launch).  The MoE expert labels read the dequant route:
+        on the card a bf16 step's INT8 experts run the grouped expert
+        kernels there (`models/moe.py`), which compute that route's
+        function and are not on the INT8 GEMM's plan."""
         records = meta_route_records(self.cfg, self.rc, _meta(self.params),
                                      self.plan_table, batch, max_len,
                                      n_image_tokens)

@@ -28,7 +28,7 @@ invalidates that capture (torch's `torch.cuda.graph` no longer collects
 on entry).
 
 The kernels' launch counters (`int8_gemm.launches`, `launches_by_design`,
-`launches_by_format`, and the attention kernels' counters) are Python
+`launches_by_format`, the attention and expert kernels' counters) are Python
 integers that a replay does not move.  A `StepGraph` records what its
 capture launched, takes those counts back out (a capture launches
 nothing), and adds them again on every replay, so a replayed step counts
@@ -64,7 +64,8 @@ capture_lock = threading.Lock()
 # kernel wrappers (attributes of repro_torch.kernels) whose counters a
 # replay credits
 COUNTED_KERNELS = ("int8_gemm", "flash_attention", "decode_attention",
-                   "paged_decode_attention", "paged_mla_decode")
+                   "paged_decode_attention", "paged_mla_decode",
+                   "moe_experts")
 
 
 def _wrappers():

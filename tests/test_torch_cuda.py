@@ -927,6 +927,193 @@ def test_mla_kernel_route_matches_plain_route(cuda, monkeypatch):
     assert agree == compared and compared > 0
 
 
+# --- the grouped INT8 expert kernels (kernels/moe_experts.py) ----------------
+
+# the two MoE cells' expert shapes at full width: (E, top_k, T, d, f)
+MOE_CELLS = {"qwen2-moe": (60, 4, 32, 2048, 1408),
+             "moonlight": (64, 6, 128, 2048, 1408)}
+
+
+def _moe_layers(cfg) -> int:
+    from repro_torch.models.model import n_periods, period_slots
+    return n_periods(cfg) * sum(s.ffn == "moe" for s in period_slots(cfg))
+
+
+def _moe_leaves(E, d, f, device, seed=0):
+    """Random INT8 expert leaves: int8 codes in [-127, 127], per-channel
+    scales around 1 / (127 sqrt(K)) (a unit-variance weight's)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def leaf(k, n):
+        q = torch.randint(-127, 128, (E, k, n), generator=gen,
+                          dtype=torch.int8)
+        s = (1.0 + torch.rand((E, n), generator=gen)) / (127 * k ** 0.5)
+        return {"q": q.to(device), "scale": s.to(device)}
+    return leaf(d, f), leaf(d, f), leaf(f, d)
+
+
+def _moe_ids(E, k, T, routing, device, seed=0):
+    """(T, k) int64 distinct expert ids per token: "router" uniform at
+    random; "idle" with the first E // 4 experts never chosen; "one" with
+    expert 5 every token's first choice (more than 32 rows at T > 32, so
+    the kernels take their rows in passes)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    score = torch.rand((T, E), generator=gen)
+    if routing == "idle":
+        score[:, :E // 4] = -1.0
+    elif routing == "one":
+        score[:, 5] = 2.0
+    return score.topk(k, dim=-1).indices.to(device)
+
+
+@pytest.mark.parametrize("routing", ["router", "idle", "one"])
+@pytest.mark.parametrize("cell", sorted(MOE_CELLS))
+def test_moe_experts_kernel_matches_plain(cuda, cell, routing):
+    """At both cells' full widths and batches, against moe_experts_ref
+    within MOE_TOL_DOC: per element one bf16 ulp of the output and one of
+    each h term (both sides sum in f32, in other orders, so an h may round
+    the other way), and over the whole tensor an RMS error of at most
+    2^-10 of the reference's RMS, which a result rounded twice exceeds
+    (6.3e-3 on the CPU).  Two launches, one per kernel, none counted by
+    the INT8 GEMM; two calls give the same bits (no atomics)."""
+    from repro_torch.kernels import moe_experts
+    from repro_torch.kernels.moe_experts import (MOE_TOL_DOC,
+                                                 moe_experts_check)
+    E, k, T, d, f = MOE_CELLS[cell]
+    leaves = _moe_leaves(E, d, f, cuda, seed=E)
+    ids = _moe_ids(E, k, T, routing, cuda, seed=T)
+    x = torch.randn((T, d), generator=torch.Generator(device="cpu")
+                    .manual_seed(k)).to(torch.bfloat16).to(cuda)
+    before = (moe_experts.launches, dict(moe_experts.launches_by_design),
+              int8_gemm.launches)
+    got = moe_experts(x, ids, *leaves)
+    assert (moe_experts.launches - before[0], int8_gemm.launches) == (
+        2, before[2])
+    assert all(moe_experts.launches_by_design[n] == before[1][n] + 1
+               for n in ("gate_up", "down"))
+    assert got.shape == (T, k, d) and got.dtype == torch.bfloat16
+    out = moe_experts_check(got, x, ids, *leaves)
+    assert out["ok"], (out, MOE_TOL_DOC)
+    assert torch.equal(got, moe_experts(x, ids, *leaves))
+
+
+def test_moe_experts_kernel_edge_rows(cuda):
+    """One token; then a T whose assignments span several scan steps of
+    the in-block routing (T k > 1,024), with 33 rows on one expert."""
+    from repro_torch.kernels import moe_experts
+    from repro_torch.kernels.moe_experts import moe_experts_check
+    E, d, f = 16, 256, 192
+    leaves = _moe_leaves(E, d, f, cuda, seed=1)
+    for T, k in ((1, 4), (600, 2)):
+        ids = _moe_ids(E, k, T, "router", cuda, seed=T)
+        if T > 1:
+            ids[:33, 0] = 7
+            ids[:33, 1] = 3
+            ids[-1] = torch.tensor([7, 2], device=cuda)
+        x = torch.randn((T, d), device=cuda).to(torch.bfloat16)
+        out = moe_experts_check(moe_experts(x, ids, *leaves), x, ids,
+                                *leaves)
+        assert out["ok"], (T, out)
+
+
+def test_moe_experts_in_a_captured_graph(cuda):
+    """The call captured in a CUDA graph (`serving.graphs.StepGraph`):
+    each replay reads the x and ids copied in for it, equals the eager
+    call bit for bit and credits two launches."""
+    from repro_torch.kernels import moe_experts
+    from repro_torch.serving.graphs import StepGraph
+    E, k, T, d, f = MOE_CELLS["qwen2-moe"]
+    leaves = _moe_leaves(E, d, f, cuda)
+    graph = StepGraph(lambda x, ids: moe_experts(x, ids, *leaves))
+    for seed in range(3):
+        x = torch.randn((T, d), generator=torch.Generator(device="cpu")
+                        .manual_seed(seed)).to(torch.bfloat16).to(cuda)
+        ids = _moe_ids(E, k, T, ("router", "idle", "one")[seed], cuda, seed)
+        before = moe_experts.launches
+        got = graph(x, ids)
+        # the first call also warms the step up, for real, before capture
+        assert moe_experts.launches == before + 2 * (1 + (seed == 0)), seed
+        assert torch.equal(got, moe_experts(x, ids, *leaves))
+    assert graph.captures == 1
+
+
+def test_moe_experts_wrapper_rejects_bad_inputs(cuda):
+    """On CUDA tensors the wrapper launches or raises: f32 x, widths not a
+    multiple of 64, a float leaf, mixed devices, and autograd."""
+    from repro_torch.kernels import moe_experts
+    leaves = _moe_leaves(4, 128, 64, cuda)
+    x = torch.randn((3, 128), device=cuda).to(torch.bfloat16)
+    ids = _moe_ids(4, 2, 3, "router", cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        moe_experts(x.float(), ids, *leaves)
+    narrow = _moe_leaves(4, 128, 96, cuda)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        moe_experts(x, ids, *narrow)
+    with pytest.raises(TypeError, match="INT8 leaves"):
+        moe_experts(x, ids, leaves[0]["q"].float(), *leaves[1:])
+    with pytest.raises(ValueError, match="share"):
+        moe_experts(x, ids.cpu(), *leaves)
+    with pytest.raises(RuntimeError, match="no backward"):
+        moe_experts(x.float().requires_grad_(), ids, *leaves)
+
+
+def test_captured_moe_step_credits_two_expert_launches_per_layer(
+        cuda, monkeypatch):
+    """The MoE cell's step at reduced widths (d 256, experts of 64 and
+    their capacity as the cell's, so every step is T <= C), captured:
+    each replay credits two expert launches per MoE layer, the INT8 GEMM
+    exactly the launches of the einsum route's step (the experts add none
+    to it), and equals the eager step bit for bit."""
+    import dataclasses
+    from repro_torch.kernels import moe_experts
+    from repro_torch.models import clone_cache, decode_step, init_paged_cache
+    from repro_torch.models import moe as tmoe
+    from repro_torch.serving import DecodeCore
+    base = reduced(ARCHS["qwen2-moe-a2.7b"])
+    cfg = dataclasses.replace(base, d_model=256, moe=dataclasses.replace(
+        base.moe, capacity_factor=base.moe.n_experts / base.moe.top_k))
+    rc = RunConfig()
+    params = init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                  device="cuda")
+    core = DecodeCore(cfg, rc, params, quantize=True, plan_batch=32,
+                      plan_max_len=64, device="cuda")
+    slots, mb = 32, 4
+    pools = init_paged_cache(cfg, rc, slots, slots * mb, 16, device="cuda")
+    copy = clone_cache(pools)
+    tables = torch.randperm(slots * mb, device="cuda").to(
+        torch.int32).view(slots, mb)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    active = torch.ones(slots, dtype=torch.bool, device="cuda")
+    step = core.batch_step
+    tok = pos = None
+    for t in range(6):
+        tok = torch.randint(0, cfg.vocab, (slots, 1), generator=gen,
+                            device="cuda")
+        pos = ((torch.arange(slots, device="cuda") * 7 + t) % (mb * 16)).to(
+            torch.int32)
+        if t == 1:      # the first call warmed up, captured and replayed
+            before = (moe_experts.launches, int8_gemm.launches)
+        got, pools = step(pools, tok, pos, active, tables)
+        if t == 1:
+            per_replay = (moe_experts.launches - before[0],
+                          int8_gemm.launches - before[1])
+        with torch.inference_mode():
+            want, copy = decode_step(core.params, copy, tok, pos, cfg, rc,
+                                     plan=core.plan_table, active=active,
+                                     block_tables=tables)
+        assert torch.equal(got, want), t
+    assert step.captures == 1
+    assert per_replay[0] == 2 * _moe_layers(cfg) == 2 * cfg.n_layers
+    # the einsum route's eager step launches the same INT8 GEMM calls
+    monkeypatch.setattr(tmoe, "_grouped_kernel_takes", lambda *a: False)
+    with torch.inference_mode():
+        start = (moe_experts.launches, int8_gemm.launches)
+        decode_step(core.params, copy, tok, pos, cfg, rc,
+                    plan=core.plan_table, active=active, block_tables=tables)
+    assert (moe_experts.launches - start[0],
+            int8_gemm.launches - start[1]) == (0, per_replay[1])
+
+
 def _attention_layers(cfg) -> int:
     from repro_torch.models.model import n_periods, period_slots
     return n_periods(cfg) * sum(s.mixer == "attn" for s in period_slots(cfg))

@@ -14,6 +14,14 @@ the aux loss.
 functions on the same quantized bytes for every einsum spec of
 tests/test_decode_hotpath.py and the fallback spec whose scale axis is
 summed out (1e-5 · max|ref|), and the stacked quantizers bit for bit.
+
+The grouped expert kernels' plain version, `kernels/moe_experts.py:
+moe_experts_ref`, is held in f32 at both MoE cells' expert shapes (60
+experts top-4 by softmax; 64 top-6 by sigmoid, × routed_scale) at reduced
+widths, against the T <= C einsum path (`dequant_contract(...,
+materialize=True)`) and the reference's einsums (1e-5 · max|ref|), and
+through `moe_apply` with the kernel branch taken on the CPU against the
+reference's `moe_apply` (softmax) or the port's einsum branch (sigmoid).
 """
 import dataclasses
 
@@ -39,11 +47,14 @@ from repro.quant.lowbit import (
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.convert import params_from_jax
 from repro_torch.core import phase_gemms_of_model, plan_workload_by_phase
+from repro_torch.kernels import moe_experts, moe_experts_ref
+from repro_torch.kernels.moe_experts import row_chunks
+from repro_torch.models import moe as tmoe
 from repro_torch.models import route_trace
 from repro_torch.models.layers import (CIM_ROUTE, DEQUANT_FP8_ROUTE,
                                        DEQUANT_INT4_ROUTE, DEQUANT_ROUTE,
                                        FLOAT_ROUTE, linear)
-from repro_torch.models.moe import capacity, moe_apply, moe_init
+from repro_torch.models.moe import capacity, moe_apply, moe_init, route
 from repro_torch.quant import (KernelPlanTable, quantize_model_params,
                                quantize_model_params_lowbit)
 from repro_torch.quant.int8 import _epilogue_scale, dequant_contract
@@ -274,3 +285,257 @@ def test_linear_routes_spec_and_stacked_weights(all_cim, precision, route):
         want = dequant_contract(x, q["w_gate"]["q"], q["w_gate"]["scale"],
                                 "td,edf->etf", materialize=True)
         assert torch.allclose(a, want, atol=1e-5)
+
+
+# --- the grouped expert kernels' plain version --------------------------------
+
+# the MoE cells' expert shapes: (scoring, experts, top_k, routed_scale)
+EXPERT_SHAPES = {"softmax-60-top4": ("softmax", 60, 4, 1.0),
+                 "sigmoid-64-top6": ("sigmoid", 64, 6, 2.446)}
+ROUTINGS = ("router", "idle", "one")
+
+
+def _expert_cfgs(shape):
+    """The reference's and the port's reduced qwen2-moe at an expert shape
+    (f32, capacity as the cells': every T is T <= C)."""
+    scoring, E, k, rs = EXPERT_SHAPES[shape]
+    jcfg = dataclasses.replace(jax_reduced(JAX_ARCHS["qwen2-moe-a2.7b"]),
+                               **KW)
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
+        jcfg.moe, n_experts=E, top_k=k, capacity_factor=E / k))
+    cfg = dataclasses.replace(reduced(ARCHS["qwen2-moe-a2.7b"]), **KW)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_experts=E, top_k=k, capacity_factor=E / k,
+        scoring=scoring, routed_scale=rs))
+    return jcfg, cfg
+
+
+def _expert_params(shape):
+    jcfg, cfg = _expert_cfgs(shape)
+    jp = jax_quantize(jax_moe_init(jax.random.PRNGKey(11), jcfg,
+                                   jnp.float32))
+    tp = params_from_jax(jp, "cpu")
+    if cfg.moe.scoring == "sigmoid":
+        tp["score_bias"] = torch.randn(
+            cfg.moe.n_experts, generator=torch.Generator().manual_seed(2))
+    return jcfg, cfg, jp, tp
+
+
+def _routing(tp, x, cfg, routing):
+    """(T, k) expert ids: the port's router's; or with the first E // 4
+    experts never chosen ("idle"); or expert 5 every token's first choice
+    ("one")."""
+    probs = route(tp, x, cfg)[0]
+    if routing == "idle":
+        probs[:, :cfg.moe.n_experts // 4] = -1.0
+    elif routing == "one":
+        probs[:, 5] = 2.0
+    return probs.topk(cfg.moe.top_k, dim=-1).indices
+
+
+def _experts(tp):
+    return tp["w_gate"], tp["w_up"], tp["w_down"]
+
+
+def _einsum_experts(x, ids, tp, contract):
+    """The T <= C path's three contractions over every expert and token,
+    each token's k outputs selected: (T, k, d)."""
+    leaves = [(w["q"], w["scale"]) for w in _experts(tp)]
+    g = contract(x, *leaves[0], "td,edf->etf")
+    u = contract(x, *leaves[1], "td,edf->etf")
+    return g, u, lambda h: contract(h, *leaves[2], "etf,efd->etd")
+
+
+@pytest.mark.parametrize("routing", ROUTINGS)
+@pytest.mark.parametrize("T", [1, 4, 32])
+@pytest.mark.parametrize("shape", sorted(EXPERT_SHAPES))
+def test_moe_experts_ref_matches_einsum_path(shape, T, routing):
+    """f32: the grouped plain version against the einsum fast path with
+    the canonical dequantized weight, at the same expert ids."""
+    _, cfg, _, tp = _expert_params(shape)
+    x = torch.tensor(np.random.default_rng(T).standard_normal(
+        (T, cfg.d_model)).astype(np.float32))
+    ids = _routing(tp, x, cfg, routing)
+    got = moe_experts_ref(x, ids, *_experts(tp))
+    g, u, down = _einsum_experts(
+        x, ids, tp, lambda a, q, s, spec: dequant_contract(
+            a, q, s, spec, materialize=True))
+    eout = down(torch.nn.functional.silu(g) * u)
+    want = torch.gather(eout.transpose(0, 1), 1,
+                        ids[:, :, None].expand(*ids.shape, cfg.d_model))
+    _close(got, want.numpy())
+    if routing == "idle":
+        assert not (ids < cfg.moe.n_experts // 4).any()
+    if routing == "one":
+        assert (ids == 5).any(-1).all()
+
+
+@pytest.mark.parametrize("T", [1, 4, 32])
+@pytest.mark.parametrize("shape", sorted(EXPERT_SHAPES))
+def test_moe_experts_ref_matches_reference_einsums(shape, T):
+    """f32: the grouped plain version against the reference's T <= C
+    contractions (its `dequant_contract` on the same bytes) and its
+    selection of each token's k outputs."""
+    _, cfg, jp, tp = _expert_params(shape)
+    x = np.random.default_rng(T + 1).standard_normal(
+        (T, cfg.d_model)).astype(np.float32)
+    ids = _routing(tp, torch.tensor(x), cfg, "router")
+    got = moe_experts_ref(torch.tensor(x), ids, *_experts(tp))
+    jx = jnp.asarray(x)
+
+    def jcontract(a, name, spec):
+        return jax_dequant_contract(a, jp[name]["q"], jp[name]["scale"],
+                                    spec)
+    h = jax.nn.silu(jcontract(jx, "w_gate", "td,edf->etf")) * jcontract(
+        jx, "w_up", "td,edf->etf")
+    eout = jcontract(h, "w_down", "etf,efd->etd")
+    want = jnp.take_along_axis(eout.transpose(1, 0, 2),
+                               jnp.asarray(ids.numpy())[:, :, None], axis=1)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("T", [1, 4, 32])
+@pytest.mark.parametrize("shape", sorted(EXPERT_SHAPES))
+def test_moe_apply_kernel_branch_matches_reference(shape, T, monkeypatch):
+    """`moe_apply` with the grouped kernel branch taken on the CPU (where
+    the wrapper runs the plain version), in f32: against the reference's
+    `moe_apply` (softmax: the same router) or the port's einsum branch
+    (sigmoid: the reference has no such router), with the three expert
+    routes recorded as the einsum branch records them."""
+    jcfg, cfg, jp, tp = _expert_params(shape)
+    x = np.random.default_rng(T + 2).standard_normal(
+        (1, T, cfg.d_model)).astype(np.float32)
+    with route_trace() as plain_routes:
+        plain, _ = moe_apply(tp, torch.tensor(x), cfg)
+    monkeypatch.setattr(tmoe, "_grouped_kernel_takes", lambda *a: True)
+    with route_trace() as records:
+        y, aux = moe_apply(tp, torch.tensor(x), cfg)
+    assert [r["route"] for r in records] == [
+        r["route"] for r in plain_routes]
+    assert [r["label"] for r in records if r["label"].startswith(
+        "expert")] == ["expert-gate", "expert-up", "expert-down"]
+    assert {r["callsite"].split(":")[0] for r in records
+            if r["label"].startswith("expert")} == {"moe.py"}
+    if cfg.moe.scoring == "softmax":
+        jy, _ = jax_moe_apply(jp, jnp.asarray(x), jcfg)
+        _close(y, jy)
+    _close(y, plain.numpy())
+
+
+@pytest.mark.parametrize("case", ["cpu", "meta", "float-leaf", "shape",
+                                  "float-ids", "autograd"])
+def test_moe_experts_wrapper_off_card(case):
+    """Off the card the wrapper runs the plain version (CPU: the same
+    bits, no launch counted) or returns an empty meta tensor, and refuses
+    what no device takes."""
+    _, cfg, _, tp = _expert_params("softmax-60-top4")
+    x = torch.randn((4, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(0))
+    ids = _routing(tp, x, cfg, "router")
+    before = (moe_experts.launches, dict(moe_experts.launches_by_design))
+    if case == "cpu":
+        assert torch.equal(moe_experts(x, ids, *_experts(tp)),
+                           moe_experts_ref(x, ids, *_experts(tp)))
+    elif case == "meta":
+        meta = [{k: v.to("meta") for k, v in w.items()}
+                for w in _experts(tp)]
+        out = moe_experts(x.to("meta"), ids.to("meta"), *meta)
+        assert out.device.type == "meta"
+        assert tuple(out.shape) == (4, cfg.moe.top_k, cfg.d_model)
+    elif case == "float-leaf":
+        with pytest.raises(TypeError, match="INT8 leaves"):
+            moe_experts(x, ids, tp["w_gate"]["q"].float(),
+                        *_experts(tp)[1:])
+    elif case == "shape":
+        with pytest.raises(ValueError, match="w_down"):
+            moe_experts(x, ids, tp["w_gate"], tp["w_up"], dict(
+                tp["w_down"], q=tp["w_down"]["q"][:, :32]))
+    elif case == "float-ids":
+        with pytest.raises(TypeError, match="integers"):
+            moe_experts(x, ids.float(), *_experts(tp))
+    else:
+        with pytest.raises(RuntimeError, match="no backward"):
+            moe_experts(x.requires_grad_(), ids, *_experts(tp))
+    assert (moe_experts.launches, moe_experts.launches_by_design) == before
+
+
+@pytest.mark.parametrize("T,k,E,want", [
+    (32, 4, 60, 1),      # the MoE cell: 2.1 rows an expert on average
+    (128, 6, 64, 2),     # Moonlight's: 12 on average, up to ~60
+    (1, 1, 16, 1), (8, 1, 16, 1),
+    (512, 4, 60, 5),     # a long T <= C call: 34 on average
+    (64, 8, 8, 2)])      # every expert takes every token: ceil(T / 32)
+def test_row_chunks_cover_four_times_the_mean(T, k, E, want):
+    """The blocks sharing an (expert, column tile): enough passes of 32
+    rows for 4x the mean rows T k / E in one round, never more than an
+    expert's T rows need."""
+    assert row_chunks(T, k, E) == want
+
+
+def _once_reordered(x, ids, w_gate, w_up, w_down, drop_last=False):
+    """The plain version's function with each contraction summed in f32
+    over 64-row pieces of K in reverse order (h and the output rounded
+    once); `drop_last` leaves out the last piece of the down
+    contraction."""
+    def contract(a, w, e, drop=False):
+        K = a.shape[1]
+        starts = list(range(0, K, 64))[:-1 if drop else None]
+        acc = torch.zeros((a.shape[0], w["q"].shape[2]))
+        for i in starts[::-1]:
+            acc = acc + a[:, i:i + 64].float() @ w["q"][e, i:i + 64].float()
+        return acc * w["scale"][e].float()
+    T, k = ids.shape
+    out = torch.empty((T * k, x.shape[1]), dtype=x.dtype)
+    flat = ids.reshape(-1)
+    for e in range(w_gate["q"].shape[0]):
+        rows = (flat == e).nonzero()[:, 0]
+        if rows.numel():
+            xe = x[rows // k]
+            h = (torch.nn.functional.silu(contract(xe, w_gate, e))
+                 * contract(xe, w_up, e)).to(x.dtype)
+            out[rows] = contract(h, w_down, e, drop_last).to(x.dtype)
+    return out.view(T, k, -1)
+
+
+@pytest.mark.parametrize("variant", ["plain", "reordered", "twice-rounded",
+                                     "dropped-piece"])
+@pytest.mark.parametrize("shape", sorted(EXPERT_SHAPES))
+def test_moe_experts_check_holds_one_rounding(shape, variant):
+    """bf16 at d 512, f 384 (8 and 6 pieces of 64 rows): `moe_experts_check`
+    passes the plain version and a sum in another f32 order rounded once,
+    and refuses the twice-rounded dequant einsums (bf16 product, then the
+    scale) and a down contraction that drops one 64-row piece of K: the
+    whole-tensor RMS bound catches what the per-element bound lets
+    through."""
+    from repro_torch.kernels.moe_experts import (MOE_RMS_TOL,
+                                                 moe_experts_check)
+    _, E, k, _ = EXPERT_SHAPES[shape]
+    d, f, T = 512, 384, 32
+    gen = torch.Generator().manual_seed(E)
+
+    def leaf(a, b):
+        return {"q": torch.randint(-127, 128, (E, a, b), generator=gen,
+                                   dtype=torch.int8),
+                "scale": (1.0 + torch.rand((E, b), generator=gen))
+                / (127 * a ** 0.5)}
+    tp = {"w_gate": leaf(d, f), "w_up": leaf(d, f), "w_down": leaf(f, d)}
+    x = torch.randn((T, d), generator=gen).to(torch.bfloat16)
+    ids = torch.randn((T, E), generator=gen).topk(k, dim=-1).indices
+    leaves = _experts(tp)
+    if variant == "plain":
+        got = moe_experts_ref(x, ids, *leaves)
+    elif variant == "twice-rounded":
+        g, u, down = _einsum_experts(x, ids, tp, dequant_contract)
+        eout = down(torch.nn.functional.silu(g) * u)
+        got = torch.gather(eout.transpose(0, 1), 1,
+                           ids[:, :, None].expand(T, k, d))
+    else:
+        got = _once_reordered(x, ids, *leaves,
+                              drop_last=variant == "dropped-piece")
+    out = moe_experts_check(got, x, ids, *leaves)
+    if variant in ("plain", "reordered"):
+        assert out["ok"], out
+        assert out["rms_rel"] <= MOE_RMS_TOL / 4, out
+    else:
+        assert not out["ok"], out
+        assert out["rms_rel"] > 2 * MOE_RMS_TOL, out
