@@ -535,14 +535,17 @@ def top2_gaps(logits) -> list[float]:
     return [round(v, 5) for v in (top[:, 0] - top[:, 1]).tolist()]
 
 
+def counts(wrapper) -> list:
+    """A kernel wrapper's launch counts, in all, per design and (for
+    int8_gemm) per weight format (`repro_torch.kernels.launch`)."""
+    from repro_torch.kernels import launch
+    return launch.snapshot([wrapper])
+
+
 def reset_counts(wrapper) -> None:
-    """Set a kernel wrapper's launch counts, in all, per design and (for
-    int8_gemm) per weight format, to 0."""
-    wrapper.launches = 0
-    for counts in (getattr(wrapper, "launches_by_design", {}),
-                   getattr(wrapper, "launches_by_format", {})):
-        for key in counts:
-            counts[key] = 0
+    """Set a kernel wrapper's launch counts to 0."""
+    from repro_torch.kernels import launch
+    launch.credit(counts(wrapper), [wrapper], sign=-1)
 
 
 def profile_window(torch, fn) -> dict:
@@ -602,11 +605,12 @@ def attn_inputs(torch, shapes, dtype, seed: int):
             for s in shapes]
 
 
-def changed(wrapper, before: dict) -> str:
-    """The designs whose launch count moved since `before` (a copy of
-    wrapper.launches_by_design)."""
-    return "+".join(d for d, c in wrapper.launches_by_design.items()
-                    if c != before[d])
+def changed(wrapper, before: list) -> str:
+    """The designs whose launch count moved since `before`
+    (`counts(wrapper)`)."""
+    from repro_torch.kernels import launch
+    moved = launch.since(before, [wrapper])[1:]    # per design, then format
+    return "+".join(d for d, n in zip(wrapper.launches_by_design, moved) if n)
 
 
 def time_flash(torch, ops, fa_mod, H: int, KV: int, dh: int) -> dict:
@@ -668,7 +672,7 @@ def check_flash(torch, ops, fa_mod, cases=None) -> list[dict]:
         q, k, v = attn_inputs(torch, [(b, sq, h, d), (b, sk, kv, d),
                                       (b, sk, kv, d)], getattr(torch, dt),
                               seed=sq + sk + h + d + window)
-        before = dict(fa_mod.flash_attention.launches_by_design)
+        before = counts(fa_mod.flash_attention)
         got = ops.fold(ops.flash_attention(q, k, v, window=window))
         r = fa_mod.flash_attention_check(got, ops.fold(q), ops.fold(k),
                                          ops.fold(v), True, window)
@@ -689,7 +693,7 @@ def check_decode(torch, ops, da_mod) -> list[dict]:
                                         (b, S, kv, d)], getattr(torch, dt),
                                 seed=S + h + d)
         for length in sorted({0, 7, min(300, S), S}):
-            before = dict(da_mod.decode_attention.launches_by_design)
+            before = counts(da_mod.decode_attention)
             got = ops.fold(ops.decode_attention(q, kc, vc, length))
             r = da_mod.decode_attention_check(got, ops.fold(q), ops.fold(kc),
                                               ops.fold(vc), length)
@@ -728,13 +732,13 @@ def check_paged(torch, ops, da_mod) -> list[dict]:
     case at ragged lengths, without and with a window, element by element
     (decode_attention_check on the folded result, the gathered strips and
     one length per query row)."""
-    from repro_torch.models.model import _paged_view
+    from repro_torch.kernels.paged import paged_view
     rows = []
     for case in PAGED_CASES:
         q, kp, vp, tables, lengths = paged_inputs(torch, case, seed=case[3])
-        kf, vf = (ops.fold(_paged_view(p, tables)) for p in (kp, vp))
+        kf, vf = (ops.fold(paged_view(p, tables)) for p in (kp, vp))
         for window in (0, PAGED_WINDOW):
-            before = dict(da_mod.paged_decode_attention.launches_by_design)
+            before = counts(da_mod.paged_decode_attention)
             got = da_mod.paged_decode_attention(q, kp, vp, tables, lengths,
                                                 window)
             r = da_mod.decode_attention_check(
@@ -758,7 +762,7 @@ def time_paged(torch, da_mod, case, full: bool) -> dict:
     never calls) is scaled_dot_product_attention over the strips gathered
     beforehand, with the lengths as a boolean mask."""
     import torch.nn.functional as F
-    from repro_torch.models.model import _paged_view
+    from repro_torch.kernels.paged import paged_view
     b, S, bs, h, kv, d = case
     q, kp, vp, tables, lengths = paged_inputs(torch, case, seed=11,
                                               full=full)
@@ -768,7 +772,7 @@ def time_paged(torch, da_mod, case, full: bool) -> dict:
 
     def plain(i):
         return da_mod.paged_decode_attention_ref(q, kp, vp, tables, lengths)
-    ks, vs = (_paged_view(p, tables).transpose(1, 2) for p in (kp, vp))
+    ks, vs = (paged_view(p, tables).transpose(1, 2) for p in (kp, vp))
     mask = (torch.arange(S, device="cuda") < lengths[:, None])[:, None, None]
 
     def library(i):
@@ -1825,11 +1829,11 @@ def time_mla(torch, mla_mod, full: bool) -> dict:
     output written once, at 3.35 TB/s) or the operations (2 H (576 + 512)
     per valid position at 989 TFLOP/s), whichever is longer."""
     import torch.nn.functional as F
-    from repro_torch.models.model import _paged_view
+    from repro_torch.kernels.paged import paged_view
     b, S, bs, H = MLA_CASE
     q, pool, tables, lengths, scale = mla_inputs(torch, full, seed=7)
     kern = mla_mod.paged_mla_decode
-    before = dict(kern.launches_by_design)
+    before = counts(kern)
     got = kern(q, pool, tables, lengths, scale)
     design = changed(kern, before)
     out = mla_mod.mla_decode_check(got, q, pool, tables, lengths, scale)
@@ -1840,7 +1844,7 @@ def time_mla(torch, mla_mod, full: bool) -> dict:
                                                    scale)))
     # every head reads the same rows: stride-0 views, which SDPA's
     # efficient kernel takes (enable_gqa sent it to the math path)
-    strips = _paged_view(pool, tables)[:, None].expand(b, H, S, 576)
+    strips = paged_view(pool, tables)[:, None].expand(b, H, S, 576)
     mask = (torch.arange(S, device="cuda") < lengths[:, None])[:, None,
                                                                 None]
     qh = q[:, :, None]
@@ -1979,7 +1983,7 @@ def mla_phase(torch, card: str) -> list[dict]:
                 f"step",
         "source": "src/repro_torch/kernels/csrc/mla_decode.cu",
         "replaces": "none: the JAX package has no latent attention "
-                    "(models/attention.py:latent_attend over the gathered "
+                    "(kernels/mla_decode.py:latent_attend over the gathered "
                     "strips is the plain version)",
         "launches": eng["launches"],
         "max_abs_err": max(times[f]["max_abs_err"] for f in times),
@@ -2052,7 +2056,7 @@ def time_moe(torch, cfg, T: int, seed: int) -> dict:
     x = torch.randn((T, d), generator=gen, device="cuda").to(torch.bfloat16)
     _, _, ids = route(params, x, cfg)
     touched = int(torch.unique(ids).numel())
-    before = dict(moe_experts.launches_by_design)
+    before = counts(moe_experts)
     got = moe_experts(x, ids, wg, wu, wd)
     design = changed(moe_experts, before)
     out = moe_experts_check(got, x, ids, wg, wu, wd)

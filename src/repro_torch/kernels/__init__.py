@@ -26,13 +26,21 @@ is the one-thread mark of `repro_torch.spans` (no TPU counterpart),
 built by `build.py` when a span recorder is first armed on a card.
 
 `ops` holds the public wrappers in the JAX package's (b, s, heads, d)
-layouts.  `build.py` compiles each CUDA source with nvcc at first use on a
-machine with a card; importing this package compiles nothing.  As
-attributes of the package, the four kernel names,
-`paged_decode_attention`, `paged_mla_decode` and `moe_experts` are the
-wrapper functions; their modules are
-reached as `repro_torch.kernels.<name>` through the import system
-(`importlib.import_module`).
+layouts.  `launch` is every wrapper's one launch path (the device
+choice, the stream, the return code, the counters) and the registry of
+counted wrappers whose launches a replayed CUDA graph credits; `paged`
+is the block pool's contract that both paged kernels read.  `build.py`
+compiles each CUDA source with nvcc at first use on a machine with a
+card; importing this package compiles nothing.  As attributes of the
+package the seven names above are the wrapper functions, so the modules
+`int8_gemm`, `sweep_eval`, `flash_attention` and `decode_attention` are
+reached through the import system (`importlib.import_module`).
+
+A kernel is added as its CUDA source under `csrc/`, its module here and
+its names in the exports below.  The module holds the wrapper, decorated with
+`launch.counted` (and so in the registry), its shape and dtype contract,
+its plan, its C call through `launch.run`, and its plain version: what
+the wrapper runs on CPU tensors and what the tests hold the kernel to.
 """
 from . import ops
 from .decode_attention import (decode_attention, decode_attention_check,

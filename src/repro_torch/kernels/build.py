@@ -8,7 +8,8 @@ loads it; a later call with the same source and flags reuses the file.
 The hash covers every header under `csrc/` that the source includes
 (`#include "..."`, followed recursively), so an edited header rebuilds
 each library that uses it.  Each kernel passes its own extra flags (the
-sweep kernel turns multiply-add contraction off).
+sweep kernel turns multiply-add contraction off) and its C launchers'
+argument types; every launcher returns an int (0, or a CUDA error).
 """
 from __future__ import annotations
 
@@ -77,10 +78,11 @@ def source_tag(source: Path, flags: tuple[str, ...]) -> str:
     return h.hexdigest()[:16]
 
 
-def build_library(name: str, extra_flags: tuple[str, ...] = ()
-                  ) -> KernelBuild:
+def build_library(name: str, extra_flags: tuple[str, ...] = (),
+                  **launchers: list) -> KernelBuild:
     """Compile `csrc/<name>.cu` (once per source and flag hash) and load
-    it.  Concurrent builders of the same library agree: each writes a
+    it, each of `launchers` (C name -> argtypes) bound to return an int.
+    Concurrent processes building the same library agree: each writes a
     private temporary file and renames it into place."""
     source = CSRC / f"{name}.cu"
     flags = NVCC_FLAGS + tuple(extra_flags)
@@ -99,5 +101,8 @@ def build_library(name: str, extra_flags: tuple[str, ...] = ()
             raise RuntimeError(f"nvcc failed on {source.name} "
                                f"({proc.returncode}):\n{log}")
         os.replace(tmp, path)
-    return KernelBuild(lib=ctypes.CDLL(str(path)), path=path,
-                       seconds=seconds, log=log)
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in launchers.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return KernelBuild(lib=lib, path=path, seconds=seconds, log=log)

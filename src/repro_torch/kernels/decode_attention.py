@@ -14,25 +14,20 @@ The CUDA source is `csrc/decode_attention.cu` (its header gives the bound
 and the designs: the S axis is split across blocks by `split_plan` and a
 second kernel combines the splits).  `kernels/build.py` compiles it with
 nvcc for sm_90a at first use and loads it with ctypes.  `decode_attention`
-takes the plain version only for tensors on the CPU; on a CUDA tensor it
-launches the kernel or raises (`length` may be a Python int or an int
-tensor on the card — the kernel reads it from device memory, so a launch
-never syncs the host); on "meta" tensors it returns an empty meta tensor.
-The dtype picks the design (`design`): "mma" for bf16 (a TMA ring and
-tensor-core products, every head width in HEAD_DIMS), "fma" for f32.
-`decode_attention.launches` counts calls that launched the kernel and
-`decode_attention.launches_by_design` counts them per design.
+takes the launch path of `kernels/launch.py` (`length` may be a Python
+int or an int tensor on the card: the kernel reads it from device
+memory, so a launch never syncs the host).  The dtype picks the design
+(`design`): "mma" for bf16 (a TMA ring and tensor-core products, every
+head width in HEAD_DIMS), "fma" for f32.
 
 `paged_decode_attention` is the engine's decode attention over a paged
 KV cache (`models/model.py:init_paged_cache`), design "paged": q (b, 1,
 H, d) against the layer's K and V block pools (n_blocks, bs, KV, d),
 read in place through `block_tables` (b, max_blocks) at each slot's own
 `lengths` (b,) and `window` (0 = none), both read from device memory.
-Its plain version, `paged_decode_attention_ref`, is
-`models/attention.py:decode_attend` over each slot's gathered strip
-(`models/model.py:_paged_view`); the wrapper takes it only for CPU
-tensors, and counts launches in `paged_decode_attention.launches` /
-`launches_by_design`.
+Its plain version, `paged_decode_attention_ref`, is `decode_attend` (the
+model's decode attention over a contiguous cache, kept here beside the
+kernel) over each slot's gathered strip (`paged.paged_view`).
 """
 from __future__ import annotations
 
@@ -43,17 +38,18 @@ import math
 import numpy as np
 import torch
 
+from ..sharding.constraints import einsum
+from . import launch
 from .build import KernelBuild, build_library
-from .flash_attention import _repeat, compare_to_plain, refuse_autograd
+from .flash_attention import (HEAD_DIMS, NEG_INF, _repeat, check_card,
+                              compare_to_plain)
+from .paged import (card_tables, check_pools, check_tables, paged_view,
+                    split_plan)
 
-NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)    # head widths the CUDA kernel is built for
 HEADS_PER_BLOCK = 16             # csrc/decode_attention.cu: HB_MAX
 TILE = 64                        # csrc/decode_attention.cu: TK and dk::T
-BLOCKS_PER_SM = 1                # the bf16 kernel's resident blocks per SM
 DESIGNS = ("mma", "fma")
 PAGED_DESIGNS = ("paged",)
-PAGED_ROWS = 8                   # a pool block's rows: a multiple of this
 
 
 def design(dtype) -> str:
@@ -65,27 +61,79 @@ def design(dtype) -> str:
 @functools.lru_cache(maxsize=None)
 def build() -> KernelBuild:
     """Compile (once per source hash) and load the kernel library."""
-    kb = build_library("decode_attention")
-    fn = kb.lib.decode_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn = kb.lib.paged_decode_attention_launch
-    fn.argtypes = ([vp, ll, ll, vp, vp] + [i32] * 3 + [ll] * 3
-                   + [vp, ll, i32, vp, vp, vp] + [i32] * 8
-                   + [ctypes.c_float, vp])
-    fn.restype = ctypes.c_int
-    return kb
+    return build_library(
+        "decode_attention",
+        decode_attention_launch=[vp] * 6 + [i32] * 8 + [ctypes.c_float, vp],
+        paged_decode_attention_launch=(
+            [vp, ll, ll, vp, vp] + [i32] * 3 + [ll] * 3
+            + [vp, ll, i32, vp, vp, vp] + [i32] * 8 + [ctypes.c_float, vp]))
+
+
+@functools.lru_cache(maxsize=None)
+def inv_sqrt_f32(d: int) -> float:
+    """1 / sqrt(d) rounded to f32, as a Python float holding that f32
+    value exactly.  It is computed once, on the CPU, so a step captured
+    as a CUDA graph makes no host-to-device copy for it; multiplying an
+    f32 tensor by it gives the same bits as multiplying by the f32
+    tensor (IEEE sqrt and division are correctly rounded on both
+    devices)."""
+    return (1.0 / torch.sqrt(torch.tensor(float(d),
+                                          dtype=torch.float32))).item()
+
+
+def gqa_expand(k, n_heads: int):
+    """(b, s, kv, d) -> (b, s, H, d) by repeating kv heads (each kv head
+    n_heads // kv times in a row, as `repeat_interleave` does; written as
+    an expand and a reshape, which DTensor propagates over a sharded
+    sequence dim where its `repeat_interleave` does not)."""
+    b, s, kv, d = k.shape
+    if kv == n_heads:
+        return k
+    return k[:, :, :, None, :].expand(b, s, kv, n_heads // kv, d).reshape(
+        b, s, n_heads, d)
+
+
+def decode_attend(q, k_cache, v_cache, cache_len, window: int = 0,
+                  grouped: bool = False):
+    """Single-token decode attention over a (b, S, KV, d) cache: the
+    model's decode attention wherever no kernel reads its cache, and the
+    paged kernel's plain version.
+
+    cache_len: (b,) valid lengths.  q: (b, 1, H, d).  Linear in S.
+    grouped=True uses grouped-query einsums that never materialize the
+    GQA-expanded cache."""
+    b, _, nh, d = q.shape
+    S, kv = k_cache.shape[1], k_cache.shape[2]
+    scale = inv_sqrt_f32(d)
+    pos = torch.arange(S, device=q.device)[None, :]
+    valid = pos < cache_len[:, None]
+    if window:
+        valid &= pos >= (cache_len[:, None] - window)
+    if grouped:
+        rep = nh // kv
+        qg = q.reshape(b, 1, kv, rep, d).float()
+        s = einsum("bqgrd,bsgd->bgrqs", qg, k_cache.float()) * scale
+        s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out = einsum("bgrqs,bsgd->bqgrd", p, v_cache.float())
+        return out.reshape(b, 1, nh, d).to(q.dtype)
+    k = gqa_expand(k_cache, nh)
+    v = gqa_expand(v_cache, nh)
+    s = einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.to(q.dtype)
 
 
 def _probs(q, k_cache, length, window: int = 0):
     """The plain version's softmax weights, (bh, 1, S) in f32; the cache
     already repeated to q's rows.  `length`: one valid prefix, or one per
     row (bh,); a window keeps positions >= length - window."""
-    from ..models.attention import _scale
     S, d = k_cache.shape[1], k_cache.shape[2]
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k_cache.float()) * _scale(d)
+    s = torch.einsum("bqd,bkd->bqk", q.float(),
+                     k_cache.float()) * inv_sqrt_f32(d)
     pos = torch.arange(S, device=q.device)
     length = torch.as_tensor(length, device=q.device)
     if length.ndim:
@@ -139,19 +187,6 @@ def check_shapes(q, k_cache, v_cache, block_kv: int) -> int:
     return bh // bh_kv
 
 
-@functools.lru_cache(maxsize=1024)
-def split_plan(n_blocks: int, S: int, n_sms: int) -> tuple[int, int]:
-    """(n_splits, split_len): split S into TILE-aligned pieces, as many as
-    the n_blocks blocks of one split can take while every block of the
-    call still fits one wave of BLOCKS_PER_SM blocks per SM (at least
-    one piece, at most one per tile).  Pure: the same arguments give the
-    same plan."""
-    want = max(1, min(math.ceil(S / TILE),
-                      BLOCKS_PER_SM * n_sms // n_blocks))
-    split_len = TILE * math.ceil(math.ceil(S / want) / TILE)
-    return math.ceil(S / split_len), split_len
-
-
 def heads_per_block(rep: int) -> int:
     """The most query heads of one kv head a block can serve (a divisor
     of rep, at most HEADS_PER_BLOCK)."""
@@ -159,6 +194,7 @@ def heads_per_block(rep: int) -> int:
                if rep % h == 0)
 
 
+@launch.counted(*DESIGNS)
 def decode_attention(q, k_cache, v_cache, length, *, block_kv: int = 512):
     """q (bh, 1, d), caches (bh_kv, S, d), length: the valid prefix ->
     (bh, 1, d) in q's dtype.
@@ -166,33 +202,18 @@ def decode_attention(q, k_cache, v_cache, length, *, block_kv: int = 512):
     `block_kv` keeps the TPU kernel's shape contract; the CUDA kernel
     splits S by its own plan, which changes only the order of f32 sums.
     Forward only: raises a RuntimeError while autograd records and an
-    input requires grad (`flash_attention.refuse_autograd`)."""
-    refuse_autograd("decode_attention", q, k_cache, v_cache)
+    input requires grad (`launch.refuse_autograd`)."""
+    launch.refuse_autograd("decode_attention", q, k_cache, v_cache)
     rep = check_shapes(q, k_cache, v_cache, block_kv)
-    dev = q.device
-    if k_cache.device != dev or v_cache.device != dev:
-        raise ValueError(f"q and the caches must share a device; got {dev}, "
-                         f"{k_cache.device}, {v_cache.device}")
+    dev = launch.device("decode_attention", "q and the caches", q, k_cache,
+                        v_cache)
     if dev.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, length)
     if dev.type == "meta":
         return torch.empty_like(q)
-    if dev.type != "cuda":
-        raise ValueError(f"decode_attention runs on cuda (or cpu/meta), got "
-                         f"{dev}")
-    if q.dtype not in (torch.bfloat16, torch.float32) or not (
-            k_cache.dtype == v_cache.dtype == q.dtype):
-        raise TypeError(f"q and the caches must all be bfloat16 or all "
-                        f"float32; got {q.dtype}, {k_cache.dtype}, "
-                        f"{v_cache.dtype}")
+    check_card(q, k_cache, v_cache, "q and the caches")
     bh, _, d = q.shape
     S = k_cache.shape[1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel is built for head widths "
-                         f"{HEAD_DIMS}, got {d}")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if torch.is_tensor(length):
         if length.numel() != 1 or length.is_floating_point():
             raise TypeError("length must be one integer")
@@ -206,30 +227,17 @@ def decode_attention(q, k_cache, v_cache, length, *, block_kv: int = 512):
     if bh // hb > 65535:
         raise ValueError(f"bh={bh} exceeds the kernel's grid")
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_splits, split_len = split_plan(bh // hb, S, n_sms)
+    n_splits, split_len = split_plan(bh // hb, S, n_sms, TILE)
     part = torch.empty(bh * n_splits * (d + 2), dtype=torch.float32,
                        device=dev)
     out = torch.empty_like(q)
-    lib = build().lib
     scale = float(np.float32(1.0 / math.sqrt(d)))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.decode_attention_launch(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            length.data_ptr(), part.data_ptr(), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), bh, S, d, hb, rep, n_splits,
-            split_len, scale, stream)
-    if rc != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
-                           f"error {rc} (10000 + n: CUresult n of a TMA "
-                           f"descriptor)")
-    decode_attention.launches += 1
-    decode_attention.launches_by_design[design(q.dtype)] += 1
+    launch.run(decode_attention, dev, build().lib.decode_attention_launch,
+               q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+               length.data_ptr(), part.data_ptr(), out.data_ptr(),
+               int(q.dtype == torch.bfloat16), bh, S, d, hb, rep, n_splits,
+               split_len, scale, designs=(design(q.dtype),))
     return out
-
-
-decode_attention.launches = 0
-decode_attention.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 # --- the paged design: the engine's decode step over a block pool ----------
@@ -237,14 +245,11 @@ decode_attention.launches_by_design = dict.fromkeys(DESIGNS, 0)
 def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths,
                                window: int = 0):
     """The plain version: each slot's strip gathered from the pools
-    (`models/model.py:_paged_view`), then `models/attention.py:
-    decode_attend` over the strips (GQA expanded, f32 scores masked to
-    [lengths - window, lengths) with -1e30, softmax, f32 PV), output (b,
-    1, H, d) in q's dtype."""
-    from ..models.attention import decode_attend
-    from ..models.model import _paged_view
-    return decode_attend(q, _paged_view(k_pool, block_tables),
-                         _paged_view(v_pool, block_tables), lengths,
+    (`paged_view`), then `decode_attend` over the strips (GQA expanded,
+    f32 scores masked to [lengths - window, lengths) with -1e30, softmax,
+    f32 PV), output (b, 1, H, d) in q's dtype."""
+    return decode_attend(q, paged_view(k_pool, block_tables),
+                         paged_view(v_pool, block_tables), lengths,
                          window=window)
 
 
@@ -263,15 +268,7 @@ def check_paged(q, k_pool, v_pool, block_tables, lengths, window) -> int:
         raise ValueError(f"q {tuple(q.shape)} and pools "
                          f"{tuple(k_pool.shape)}: head widths must match "
                          f"and H be a multiple of KV")
-    if block_tables.ndim != 2 or block_tables.shape[0] != b or (
-            tuple(lengths.shape) != (b,)):
-        raise ValueError(f"want block_tables (b, max_blocks) and lengths "
-                         f"(b,) for b={b}; got {tuple(block_tables.shape)}, "
-                         f"{tuple(lengths.shape)}")
-    if block_tables.is_floating_point() or lengths.is_floating_point() or (
-            block_tables.dtype == torch.bool):
-        raise TypeError(f"block_tables and lengths must be integers; got "
-                        f"{block_tables.dtype}, {lengths.dtype}")
+    check_tables(block_tables, lengths, b)
     if q.dtype not in (torch.bfloat16, torch.float32) or not (
             k_pool.dtype == v_pool.dtype == q.dtype):
         raise TypeError(f"q and the pools must all be bfloat16 (or all "
@@ -284,31 +281,21 @@ def check_paged(q, k_pool, v_pool, block_tables, lengths, window) -> int:
 
 def check_paged_card(q, k_pool, v_pool) -> None:
     """The CUDA kernel's contract beyond `check_paged`: bf16, a head width
-    in HEAD_DIMS, blocks of a multiple of PAGED_ROWS rows, pools sharing
-    strides of whole 16-byte rows with the last dim contiguous, q's last
-    dim contiguous.  Raises TypeError / ValueError."""
+    in HEAD_DIMS, the pools' `paged.check_pools`, q's last dim
+    contiguous.  Raises TypeError / ValueError."""
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA kernel takes bfloat16, got {q.dtype}")
-    d, bs = q.shape[3], k_pool.shape[1]
-    if d not in HEAD_DIMS:
+    if q.shape[3] not in HEAD_DIMS:
         raise ValueError(f"the CUDA kernel is built for head widths "
-                         f"{HEAD_DIMS}, got {d}")
-    if bs % PAGED_ROWS:
-        raise ValueError(f"block_size {bs} is not a multiple of "
-                         f"{PAGED_ROWS}")
-    if k_pool.stride() != v_pool.stride() or k_pool.stride(3) != 1 or any(
-            st % 8 for st in k_pool.stride()[:3]) or any(
-            t.data_ptr() % 16 for t in (k_pool, v_pool)):
-        raise ValueError(f"the pools must share strides, each a multiple of "
-                         f"8 elements with the last dim contiguous, and be "
-                         f"16-byte aligned; got {k_pool.stride()}, "
-                         f"{v_pool.stride()}")
+                         f"{HEAD_DIMS}, got {q.shape[3]}")
+    check_pools(k_pool, v_pool)
     if q.stride(3) != 1 or q.stride(0) % 2 or q.stride(2) % 2 or (
             q.data_ptr() % 4):
         raise ValueError(f"q's last dim must be contiguous and its rows "
                          f"4-byte aligned; got strides {q.stride()}")
 
 
+@launch.counted(*PAGED_DESIGNS)
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
                            window: int = 0):
     """q (b, 1, H, d), pools (n_blocks, block_size, KV, d), block_tables
@@ -318,62 +305,42 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
     the mean of v, when none is valid).
 
     On the card: bf16 q and pools, the head width in HEAD_DIMS, block_size
-    a multiple of PAGED_ROWS, each tensor's last dim contiguous; tables
-    are read as int32 and lengths as int64 (others are converted, one copy
-    each).  Nothing is read on the host and nothing synced, so a CUDA
-    graph can capture the call.  Forward only: raises a RuntimeError
+    a multiple of `paged.PAGED_ROWS`, each tensor's last dim contiguous;
+    tables are read as int32 and lengths as int64 (others are converted,
+    one copy each).  Nothing is read on the host and nothing synced, so a
+    CUDA graph can capture the call.  Forward only: raises a RuntimeError
     while autograd records and an input requires grad."""
-    refuse_autograd("paged_decode_attention", q, k_pool, v_pool)
+    launch.refuse_autograd("paged_decode_attention", q, k_pool, v_pool)
     rep = check_paged(q, k_pool, v_pool, block_tables, lengths, window)
-    dev = q.device
-    if any(t.device != dev for t in (k_pool, v_pool, block_tables, lengths)):
-        raise ValueError(f"q, the pools, block_tables and lengths must share "
-                         f"a device; got {dev}, {k_pool.device}, "
-                         f"{v_pool.device}, {block_tables.device}, "
-                         f"{lengths.device}")
+    dev = launch.device("paged_decode_attention",
+                        "q, the pools, block_tables and lengths", q, k_pool,
+                        v_pool, block_tables, lengths)
     if dev.type == "cpu":
         return paged_decode_attention_ref(q, k_pool, v_pool, block_tables,
                                           lengths, window)
     if dev.type == "meta":
         return torch.empty_like(q)
-    if dev.type != "cuda":
-        raise ValueError(f"paged_decode_attention runs on cuda (or "
-                         f"cpu/meta), got {dev}")
     check_paged_card(q, k_pool, v_pool)
     b, _, nh, d = q.shape
     n_blocks, bs, kv, _ = k_pool.shape
-    tables = block_tables.to(torch.int32)
-    if tables.stride(1) != 1:
-        tables = tables.contiguous()
-    lens = lengths.to(torch.int64).contiguous()
+    tables, lens = card_tables(block_tables, lengths)
     hb = heads_per_block(rep)
     if b * nh // hb > 65535:
         raise ValueError(f"b * H = {b * nh} exceeds the kernel's grid")
     max_blocks = tables.shape[1]
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_splits, split_len = split_plan(b * nh // hb, max_blocks * bs, n_sms)
+    n_splits, split_len = split_plan(b * nh // hb, max_blocks * bs, n_sms,
+                                     TILE)
     part = (torch.empty(b * nh * n_splits * (d + 2), dtype=torch.float32,
                         device=dev) if n_splits > 1 else None)
     out = torch.empty((b, 1, nh, d), dtype=q.dtype, device=dev)
-    from ..models.attention import _scale
-    lib = build().lib
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.paged_decode_attention_launch(
-            q.data_ptr(), q.stride(0), q.stride(2), k_pool.data_ptr(),
-            v_pool.data_ptr(), n_blocks, bs, kv, k_pool.stride(0),
-            k_pool.stride(1), k_pool.stride(2), tables.data_ptr(),
-            tables.stride(0), max_blocks, lens.data_ptr(),
-            None if part is None else part.data_ptr(), out.data_ptr(), b, nh,
-            d, hb, rep, int(window), n_splits, split_len, _scale(d), stream)
-    if rc != 0:
-        raise RuntimeError(f"paged_decode_attention kernel launch failed: "
-                           f"CUDA error {rc} (10000 + n: CUresult n of a TMA "
-                           f"descriptor)")
-    paged_decode_attention.launches += 1
-    paged_decode_attention.launches_by_design["paged"] += 1
+    launch.run(paged_decode_attention, dev,
+               build().lib.paged_decode_attention_launch,
+               q.data_ptr(), q.stride(0), q.stride(2), k_pool.data_ptr(),
+               v_pool.data_ptr(), n_blocks, bs, kv, k_pool.stride(0),
+               k_pool.stride(1), k_pool.stride(2), tables.data_ptr(),
+               tables.stride(0), max_blocks, lens.data_ptr(),
+               None if part is None else part.data_ptr(), out.data_ptr(), b,
+               nh, d, hb, rep, int(window), n_splits, split_len,
+               inv_sqrt_f32(d), designs=PAGED_DESIGNS)
     return out
-
-
-paged_decode_attention.launches = 0
-paged_decode_attention.launches_by_design = dict.fromkeys(PAGED_DESIGNS, 0)

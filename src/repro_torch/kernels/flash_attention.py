@@ -15,13 +15,11 @@ keys at distance >= window whether or not `causal` is set
 
 The CUDA source is `csrc/flash_attention.cu` (its header gives the bound
 and the designs); `kernels/build.py` compiles it with nvcc for sm_90a at
-first use and loads it with ctypes.  `flash_attention` takes the plain
-version only for tensors on the CPU; on a CUDA tensor it launches the
-kernel or raises; on "meta" tensors it returns an empty meta tensor.
-The dtype picks the design (`design`): "wgmma" for bf16 (TMA + wgmma,
-every head width in HEAD_DIMS), "fma" for f32 (off the prefill path).
-`flash_attention.launches` counts kernel launches and
-`flash_attention.launches_by_design` counts them per design.
+first use and loads it with ctypes.  `flash_attention` takes the launch
+path of `kernels/launch.py` (the plain version on the CPU, the kernel on
+the card).  The dtype picks the design (`design`): "wgmma" for bf16 (TMA
++ wgmma, every head width in HEAD_DIMS), "fma" for f32 (off the prefill
+path).
 """
 from __future__ import annotations
 
@@ -32,10 +30,11 @@ import math
 import numpy as np
 import torch
 
+from . import launch
 from .build import KernelBuild, build_library
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)    # head widths the CUDA kernel is built for
+HEAD_DIMS = (16, 32, 64, 128)    # head widths both attention kernels take
 DESIGNS = ("wgmma", "fma")
 
 
@@ -48,12 +47,9 @@ def design(dtype) -> str:
 @functools.lru_cache(maxsize=None)
 def build() -> KernelBuild:
     """Compile (once per source hash) and load the kernel library."""
-    kb = build_library("flash_attention")
-    fn = kb.lib.flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return kb
+    return build_library("flash_attention", flash_attention_launch=(
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_void_p]))
 
 
 def _mask(sq: int, sk: int, causal: bool, window: int, device):
@@ -130,6 +126,22 @@ def compare_to_plain(got, p, v, p_rounded: bool) -> dict:
                 (err <= bound).all())}
 
 
+def check_card(q, k, v, what: str) -> None:
+    """The attention kernels' contract on the card: `what` (q, then its
+    keys and values) all bfloat16 or all float32, a head width in
+    HEAD_DIMS, each contiguous and 16-byte aligned.  Raises TypeError /
+    ValueError."""
+    if q.dtype not in (torch.bfloat16, torch.float32) or not (
+            k.dtype == v.dtype == q.dtype):
+        raise TypeError(f"{what} must all be bfloat16 or all float32; got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel is built for head widths "
+                         f"{HEAD_DIMS}, got {q.shape[-1]}")
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{what} must be contiguous and 16-byte aligned")
+
+
 def flash_attention_check(got, q, k, v, causal: bool = True,
                           window: int = 0) -> dict:
     """`compare_to_plain` for a flash_attention result on folded inputs;
@@ -159,19 +171,7 @@ def check_shapes(q, k, v, block_q: int, block_kv: int) -> int:
     return bh // bh_kv
 
 
-def refuse_autograd(name: str, *tensors) -> None:
-    """Raise if autograd would record through a forward-only kernel: its
-    output would carry no grad_fn and the inputs' gradients would be lost
-    without an error.  Checked before the device dispatch, so the plain
-    version on the CPU refuses too."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name}: the kernel has no backward (the JAX package cannot "
-            f"differentiate its Pallas kernel either); call it under "
-            f"torch.no_grad() or torch.inference_mode(), or train with "
-            f"attn_impl='flash_jnp' or 'naive'")
-
-
+@launch.counted(*DESIGNS)
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     block_q: int = 128, block_kv: int = 128):
     """q (bh, sq, d), k/v (bh_kv, sk, d) -> (bh, sq, d) in q's dtype.
@@ -180,52 +180,25 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     kernel tiles by its own fixed blocks (128 query rows and 128-key tiles
     in bf16), which changes only the order of f32 sums.  Forward only:
     raises a RuntimeError while autograd records and an input requires
-    grad (`refuse_autograd`)."""
-    refuse_autograd("flash_attention", q, k, v)
+    grad (`launch.refuse_autograd`)."""
+    launch.refuse_autograd("flash_attention", q, k, v)
     rep = check_shapes(q, k, v, block_q, block_kv)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
-    dev = q.device
-    if k.device != dev or v.device != dev:
-        raise ValueError(f"q, k and v must share a device; got {dev}, "
-                         f"{k.device}, {v.device}")
+    dev = launch.device("flash_attention", "q, k and v", q, k, v)
     if dev.type == "cpu":
         return flash_attention_ref(q, k, v, causal, window)
     if dev.type == "meta":
         return torch.empty_like(q)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda (or cpu/meta), got "
-                         f"{dev}")
-    if q.dtype not in (torch.bfloat16, torch.float32) or not (
-            k.dtype == v.dtype == q.dtype):
-        raise TypeError(f"q, k, v must all be bfloat16 or all float32; got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    check_card(q, k, v, "q, k and v")
     bh, sq, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel is built for head widths "
-                         f"{HEAD_DIMS}, got {d}")
     if bh > 65535:
         raise ValueError(f"bh={bh} exceeds the kernel's grid (65535)")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     o = torch.empty_like(q)
-    lib = build().lib
     scale = float(np.float32(1.0 / math.sqrt(d)))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            int(q.dtype == torch.bfloat16), bh, sq, k.shape[1], d, rep,
-            int(bool(causal)), int(window), scale, stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc} (10000 + n: CUresult n of a TMA "
-                           f"descriptor)")
-    flash_attention.launches += 1
-    flash_attention.launches_by_design[design(q.dtype)] += 1
+    launch.run(flash_attention, dev, build().lib.flash_attention_launch,
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+               int(q.dtype == torch.bfloat16), bh, sq, k.shape[1], d, rep,
+               int(bool(causal)), int(window), scale,
+               designs=(design(q.dtype),))
     return o
-
-
-flash_attention.launches = 0
-flash_attention.launches_by_design = dict.fromkeys(DESIGNS, 0)

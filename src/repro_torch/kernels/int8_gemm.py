@@ -24,13 +24,11 @@ Every design takes both weight formats (`WEIGHT_FORMATS`): the kernels
 are templates on the format and differ only in how a weight byte is
 decoded, so `plan_gemm` does not look at it.
 
-`int8_gemm` takes the plain version only for tensors on the CPU; on a
-CUDA tensor it launches the planned kernel or raises.  On "meta" tensors
-(the shape-only trace behind `DecodeCore.route_report`) it returns an
-empty meta tensor of the output shape.  `int8_gemm.launches` counts calls
-that launched (one per GEMM, also when design B adds its reduce pass);
-`int8_gemm.launches_by_design` counts them per design and
-`int8_gemm.launches_by_format` per weight format ("int8", "fp8").
+`int8_gemm` takes the launch path of `kernels/launch.py` ("meta" tensors
+are the shape-only trace behind `DecodeCore.route_report`).  It counts
+one launch per GEMM, also when design B adds its reduce pass, and
+`int8_gemm.launches_by_format` counts them per weight format ("int8",
+"fp8").
 """
 from __future__ import annotations
 
@@ -41,6 +39,7 @@ import math
 
 import torch
 
+from . import launch
 from .build import KernelBuild, build_library
 
 DESIGNS = ("A", "B", "fma")
@@ -99,18 +98,13 @@ def plan_gemm(m: int, n: int, k: int, *, x_bf16: bool = True,
 @functools.lru_cache(maxsize=None)
 def build() -> KernelBuild:
     """Compile (once per source hash) and load the kernel library."""
-    kb = build_library("int8_gemm")
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    kb.lib.int8_gemm_fma_launch.argtypes = [vp, vp, vp, vp, i, i, i, ll, ll,
-                                            i, i, vp]
-    kb.lib.int8_gemm_tma_launch.argtypes = [vp, vp, vp, vp, i, i, i, ll, ll,
-                                            i, i, vp]
-    kb.lib.int8_gemm_ws_launch.argtypes = [vp, vp, vp, vp, vp, i, i, i, ll,
-                                           ll, i, i, i, i, vp]
-    for fn in (kb.lib.int8_gemm_fma_launch, kb.lib.int8_gemm_tma_launch,
-               kb.lib.int8_gemm_ws_launch):
-        fn.restype = ctypes.c_int
-    return kb
+    os_args = [vp, vp, vp, vp, i, i, i, ll, ll, i, i, vp]
+    return build_library(
+        "int8_gemm", int8_gemm_fma_launch=os_args,
+        int8_gemm_tma_launch=os_args,
+        int8_gemm_ws_launch=[vp, vp, vp, vp, vp, i, i, i, ll, ll, i, i, i, i,
+                             vp])
 
 
 def int8_gemm_ref(x, w_q, scale, out_dtype=torch.float32):
@@ -125,6 +119,7 @@ def _alignment(ptr: int) -> int:
     return min(ptr & -ptr, 16) if ptr else 16
 
 
+@launch.counted(*DESIGNS, formats=tuple(WEIGHT_FORMATS.values()))
 def int8_gemm(x, w_q, scale, *, out_dtype=torch.float32,
               dataflow: str = "os"):
     """y = (x @ w_q) * scale[None, :] -> (M, N) `out_dtype` (float32, as
@@ -149,16 +144,11 @@ def int8_gemm(x, w_q, scale, *, out_dtype=torch.float32,
                         f"{w_q.dtype}")
     if dataflow not in ("os", "ws"):
         raise ValueError(f"unknown dataflow {dataflow!r}")
-    dev = x.device
-    if w_q.device != dev or scale.device != dev:
-        raise ValueError(f"x, w_q and scale must share a device; got {dev}, "
-                         f"{w_q.device}, {scale.device}")
+    dev = launch.device("int8_gemm", "x, w_q and scale", x, w_q, scale)
     if dev.type == "cpu":
         return int8_gemm_ref(x, w_q, scale, out_dtype)
     if dev.type == "meta":
         return torch.empty((M, N), dtype=out_dtype, device=dev)
-    if dev.type != "cuda":
-        raise ValueError(f"int8_gemm runs on cuda (or cpu/meta), got {dev}")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"x must be bfloat16 or float32, got {x.dtype}")
     if out_dtype not in (torch.float32, torch.bfloat16):
@@ -168,49 +158,28 @@ def int8_gemm(x, w_q, scale, *, out_dtype=torch.float32,
         raise TypeError("scale must be a contiguous float32 vector")
     if x.stride(1) != 1 or w_q.stride(1) != 1:
         raise ValueError("x and w_q need unit column stride")
-    if dev.index is not None and dev.index != torch.cuda.current_device():
-        with torch.cuda.device(dev):
-            return int8_gemm(x, w_q, scale, out_dtype=out_dtype,
-                             dataflow=dataflow)
     y = torch.empty((M, N), dtype=out_dtype, device=dev)
     if M == 0 or N == 0:
         return y
     if K == 0:
         return y.zero_()
-    xp, wp = x.data_ptr(), w_q.data_ptr()
+    xp, wp, ldx, ldw = x.data_ptr(), w_q.data_ptr(), x.stride(0), w_q.stride(0)
     plan = plan_gemm(M, N, K, x_bf16=x.dtype == torch.bfloat16,
-                     dataflow=dataflow, ldx=x.stride(0), ldw=w_q.stride(0),
+                     dataflow=dataflow, ldx=ldx, ldw=ldw,
                      x_align=_alignment(xp), w_align=_alignment(wp))
-    out_bf16 = int(out_dtype == torch.bfloat16)
-    w_fp8 = int(fmt == "fp8")
     lib = build().lib
-    # the raw handle of the current stream, without a Stream object
-    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
-    if plan.design == "A":
-        rc = lib.int8_gemm_tma_launch(
-            xp, wp, scale.data_ptr(), y.data_ptr(), M, N, K, x.stride(0),
-            w_q.stride(0), out_bf16, w_fp8, stream)
-    elif plan.design == "B":
+    out_bf16, w_fp8 = int(out_dtype == torch.bfloat16), int(fmt == "fp8")
+    if plan.design == "B":
         part = (torch.empty((plan.splits, M, N), dtype=torch.float32,
                             device=dev) if plan.splits > 1 else None)
-        rc = lib.int8_gemm_ws_launch(
-            xp, wp, scale.data_ptr(),
-            y.data_ptr(), None if part is None else part.data_ptr(), M, N,
-            K, x.stride(0), w_q.stride(0), plan.kslice, plan.splits,
-            out_bf16, w_fp8, stream)
+        launch.run(int8_gemm, dev, lib.int8_gemm_ws_launch, xp, wp,
+                   scale.data_ptr(), y.data_ptr(),
+                   None if part is None else part.data_ptr(), M, N, K, ldx,
+                   ldw, plan.kslice, plan.splits, out_bf16, w_fp8,
+                   designs=(plan.design,), formats=(fmt,))
     else:
-        rc = lib.int8_gemm_fma_launch(
-            xp, wp, scale.data_ptr(), y.data_ptr(), M, N, K, x.stride(0),
-            w_q.stride(0), out_bf16, w_fp8, stream)
-    if rc != 0:
-        raise RuntimeError(f"int8_gemm design {plan.design} launch failed: "
-                           f"error {rc}")
-    int8_gemm.launches += 1
-    int8_gemm.launches_by_design[plan.design] += 1
-    int8_gemm.launches_by_format[fmt] += 1
+        launch.run(int8_gemm, dev, lib.int8_gemm_tma_launch
+                   if plan.design == "A" else lib.int8_gemm_fma_launch, xp,
+                   wp, scale.data_ptr(), y.data_ptr(), M, N, K, ldx, ldw,
+                   out_bf16, w_fp8, designs=(plan.design,), formats=(fmt,))
     return y
-
-
-int8_gemm.launches = 0
-int8_gemm.launches_by_design = dict.fromkeys(DESIGNS, 0)
-int8_gemm.launches_by_format = dict.fromkeys(WEIGHT_FORMATS.values(), 0)

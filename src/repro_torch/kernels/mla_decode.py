@@ -17,55 +17,65 @@ columns.
 
 The CUDA source is `csrc/mla_decode.cu` (its header gives the bound and
 the design); `kernels/build.py` compiles it with nvcc for sm_90a at first
-use and loads it with ctypes.  `paged_mla_decode` takes the plain
-version, `paged_mla_decode_ref` (`models/attention.py: latent_attend`
-over each slot's gathered strip), only for CPU tensors; on a CUDA tensor
-it launches the kernel or raises; on "meta" tensors it returns an empty
-meta tensor.  Nothing is read on the host and nothing synced, so a CUDA
-graph can capture the call.  `paged_mla_decode.launches` counts calls
-that launched the kernel, `launches_by_design` counts them per design
-(one, "mla").
+use and loads it with ctypes.  `paged_mla_decode` takes the launch path
+of `kernels/launch.py`; its plain version, `paged_mla_decode_ref`, is
+`latent_attend` (the model's latent attention over a contiguous cache,
+kept here beside the kernel) over each slot's gathered strip.  Nothing
+is read on the host and nothing synced, so a CUDA graph can capture the
+call.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import torch
 
+from ..sharding.constraints import einsum
+from . import launch
 from .build import KernelBuild, build_library
-from .flash_attention import refuse_autograd
+from .flash_attention import NEG_INF, compare_to_plain
+from .paged import (card_tables, check_pools, check_tables, paged_view,
+                    split_plan)
 
 LATENT = 512                     # the latent's width: V, and the output's
 ROW = 576                        # a cached row: the latent and the rope key
 MAX_HEADS = 16                   # csrc/mla_decode.cu: HMAX
 TILE = 32                        # csrc/mla_decode.cu: T
-PAGED_ROWS = 8                   # a pool block's rows: a multiple of this
 DESIGNS = ("mla",)
 
 
 @functools.lru_cache(maxsize=None)
 def build() -> KernelBuild:
     """Compile (once per source hash) and load the kernel library."""
-    kb = build_library("mla_decode")
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn = kb.lib.paged_mla_decode_launch
-    fn.argtypes = ([vp, vp, i32, i32, ll, ll, vp, ll, i32, vp, vp, vp]
-                   + [i32] * 4 + [ctypes.c_float, vp])
-    fn.restype = ctypes.c_int
-    return kb
+    return build_library("mla_decode", paged_mla_decode_launch=(
+        [vp, vp, i32, i32, ll, ll, vp, ll, i32, vp, vp, vp] + [i32] * 4
+        + [ctypes.c_float, vp]))
+
+
+def latent_attend(q, rows, cache_len, scale: float, v_dim: int):
+    """Latent (MLA) decode attention: every query head over one shared
+    row per position.  q: (b, H, w); rows: (b, S, w); cache_len (b,):
+    positions < cache_len are valid.  The scores q . row times `scale`
+    in f32, masked with NEG_INF, softmax, then the weighted sum of each
+    row's first `v_dim` columns in f32 -> (b, H, v_dim) in q's dtype; a
+    slot with no valid position gives zeros."""
+    S = rows.shape[1]
+    s = einsum("bhw,bsw->bhs", q.float(), rows.float()) * scale
+    valid = torch.arange(S, device=q.device)[None, :] < cache_len[:, None]
+    p = torch.softmax(torch.where(valid[:, None, :], s, NEG_INF), dim=-1)
+    out = einsum("bhs,bsc->bhc", p, rows[..., :v_dim].float())
+    out = torch.where((cache_len > 0)[:, None, None], out, 0.0)
+    return out.to(q.dtype)
 
 
 def paged_mla_decode_ref(q, pool, block_tables, lengths, scale: float,
                          v_dim: int = LATENT):
     """The plain version: each slot's strip of rows gathered from the pool
-    (`models/model.py: _paged_view`), then `models/attention.py:
-    latent_attend` (f32 scores masked with -1e30, softmax, f32 sum of the
-    rows' first `v_dim` columns), output (b, H, v_dim) in q's dtype."""
-    from ..models.attention import latent_attend
-    from ..models.model import _paged_view
-    return latent_attend(q, _paged_view(pool, block_tables), lengths, scale,
+    (`paged_view`), then `latent_attend`, output (b, H, v_dim) in q's
+    dtype."""
+    return latent_attend(q, paged_view(pool, block_tables), lengths, scale,
                          v_dim)
 
 
@@ -77,10 +87,8 @@ def mla_decode_check(got, q, pool, block_tables, lengths, scale: float,
     the plain weights zero for a slot with no valid position (whose
     output is zeros) and the strips' first v_dim columns as v; the
     kernel keeps p in f32 (a hi/lo bf16 pair), so p is not rounded."""
-    from ..models.model import _paged_view
-    from .flash_attention import compare_to_plain
     b, H, _ = q.shape
-    strips = _paged_view(pool, block_tables)
+    strips = paged_view(pool, block_tables)
     S = strips.shape[1]
     s = torch.einsum("bhw,bsw->bhs", q.float(), strips.float()) * scale
     valid = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
@@ -100,15 +108,7 @@ def check_mla(q, pool, block_tables, lengths, v_dim: int) -> None:
     b = q.shape[0]
     if not 0 < v_dim <= q.shape[2]:
         raise ValueError(f"v_dim {v_dim} must lie in [1, {q.shape[2]}]")
-    if block_tables.ndim != 2 or block_tables.shape[0] != b or (
-            tuple(lengths.shape) != (b,)):
-        raise ValueError(f"want block_tables (b, max_blocks) and lengths "
-                         f"(b,) for b={b}; got {tuple(block_tables.shape)}, "
-                         f"{tuple(lengths.shape)}")
-    if block_tables.is_floating_point() or lengths.is_floating_point() or (
-            block_tables.dtype == torch.bool):
-        raise TypeError(f"block_tables and lengths must be integers; got "
-                        f"{block_tables.dtype}, {lengths.dtype}")
+    check_tables(block_tables, lengths, b)
     if q.dtype not in (torch.bfloat16, torch.float32) or (
             pool.dtype != q.dtype):
         raise TypeError(f"q and the pool must both be bfloat16 (or both "
@@ -117,9 +117,8 @@ def check_mla(q, pool, block_tables, lengths, v_dim: int) -> None:
 
 def check_mla_card(q, pool, v_dim: int) -> None:
     """The CUDA kernel's contract beyond `check_mla`: bf16, rows of 576
-    with the first 512 as V, at most 16 heads, blocks of a multiple of
-    PAGED_ROWS rows, rows contiguous with block and row strides of whole
-    16-byte pieces, 16-byte aligned.  Raises TypeError / ValueError."""
+    with the first 512 as V, at most 16 heads, the pool's
+    `paged.check_pools`.  Raises TypeError / ValueError."""
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA kernel takes bfloat16, got {q.dtype}")
     if q.shape[2] != ROW or v_dim != LATENT:
@@ -130,26 +129,10 @@ def check_mla_card(q, pool, v_dim: int) -> None:
     if not 1 <= q.shape[1] <= MAX_HEADS:
         raise ValueError(f"the CUDA kernel serves 1 to {MAX_HEADS} heads, "
                          f"got {q.shape[1]}")
-    if pool.shape[1] % PAGED_ROWS:
-        raise ValueError(f"block_size {pool.shape[1]} is not a multiple of "
-                         f"{PAGED_ROWS}")
-    if pool.stride(2) != 1 or any(st % 8 for st in pool.stride()[:2]) or (
-            pool.data_ptr() % 16):
-        raise ValueError(f"the pool's rows must be contiguous, its strides "
-                         f"multiples of 8 elements and it 16-byte aligned; "
-                         f"got strides {pool.stride()}")
+    check_pools(pool)
 
 
-@functools.lru_cache(maxsize=1024)
-def split_plan(b: int, S: int, n_sms: int) -> tuple[int, int]:
-    """(n_splits, split_len): a slot's S positions cut into TILE-aligned
-    pieces, as many as keep the b * n_splits blocks within one wave of
-    one block per SM (at least one piece, at most one per tile)."""
-    want = max(1, min(math.ceil(S / TILE), n_sms // b))
-    split_len = TILE * math.ceil(math.ceil(S / want) / TILE)
-    return math.ceil(S / split_len), split_len
-
-
+@launch.counted(*DESIGNS)
 def paged_mla_decode(q, pool, block_tables, lengths, scale: float,
                      v_dim: int = LATENT):
     """q (b, H, w), pool (n_blocks, block_size, w), block_tables (b,
@@ -157,58 +140,38 @@ def paged_mla_decode(q, pool, block_tables, lengths, scale: float,
     (b, H, v_dim) in q's dtype (see the module docstring).
 
     On the card: bf16, w = 576 and v_dim = 512, H <= 16, block_size a
-    multiple of PAGED_ROWS; tables are read as int32 and lengths as int64
-    (others are converted, one copy each), q made contiguous.  Forward
-    only: raises a RuntimeError while autograd records and an input
-    requires grad."""
-    refuse_autograd("paged_mla_decode", q, pool)
+    multiple of `paged.PAGED_ROWS`; tables are read as int32 and lengths
+    as int64 (others are converted, one copy each), q made contiguous.
+    Forward only: raises a RuntimeError while autograd records and an
+    input requires grad."""
+    launch.refuse_autograd("paged_mla_decode", q, pool)
     check_mla(q, pool, block_tables, lengths, v_dim)
-    dev = q.device
-    if any(t.device != dev for t in (pool, block_tables, lengths)):
-        raise ValueError(f"q, the pool, block_tables and lengths must share "
-                         f"a device; got {dev}, {pool.device}, "
-                         f"{block_tables.device}, {lengths.device}")
+    dev = launch.device("paged_mla_decode",
+                        "q, the pool, block_tables and lengths", q, pool,
+                        block_tables, lengths)
     if dev.type == "cpu":
         return paged_mla_decode_ref(q, pool, block_tables, lengths, scale,
                                     v_dim)
     if dev.type == "meta":
         return q.new_empty(q.shape[:2] + (v_dim,))
-    if dev.type != "cuda":
-        raise ValueError(f"paged_mla_decode runs on cuda (or cpu/meta), got "
-                         f"{dev}")
     check_mla_card(q, pool, v_dim)
     b, H, _ = q.shape
     n_blocks, bs, _ = pool.shape
     q = q.contiguous()
-    tables = block_tables.to(torch.int32)
-    if tables.stride(1) != 1:
-        tables = tables.contiguous()
-    lens = lengths.to(torch.int64).contiguous()
+    tables, lens = card_tables(block_tables, lengths)
     if b > 65535:
         raise ValueError(f"b = {b} exceeds the kernel's grid")
     max_blocks = tables.shape[1]
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_splits, split_len = split_plan(b, max_blocks * bs, n_sms)
+    n_splits, split_len = split_plan(b, max_blocks * bs, n_sms, TILE)
     part = (torch.empty(b * n_splits * MAX_HEADS * (LATENT + 2),
                         dtype=torch.float32, device=dev)
             if n_splits > 1 else None)
     out = torch.empty((b, H, LATENT), dtype=q.dtype, device=dev)
-    lib = build().lib
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.paged_mla_decode_launch(
-            q.data_ptr(), pool.data_ptr(), n_blocks, bs, pool.stride(0),
-            pool.stride(1), tables.data_ptr(), tables.stride(0), max_blocks,
-            lens.data_ptr(), None if part is None else part.data_ptr(),
-            out.data_ptr(), b, H, n_splits, split_len, float(scale), stream)
-    if rc != 0:
-        raise RuntimeError(f"paged_mla_decode kernel launch failed: CUDA "
-                           f"error {rc} (10000 + n: CUresult n of the TMA "
-                           f"descriptor)")
-    paged_mla_decode.launches += 1
-    paged_mla_decode.launches_by_design["mla"] += 1
+    launch.run(paged_mla_decode, dev, build().lib.paged_mla_decode_launch,
+               q.data_ptr(), pool.data_ptr(), n_blocks, bs, pool.stride(0),
+               pool.stride(1), tables.data_ptr(), tables.stride(0),
+               max_blocks, lens.data_ptr(),
+               None if part is None else part.data_ptr(), out.data_ptr(), b,
+               H, n_splits, split_len, float(scale), designs=DESIGNS)
     return out
-
-
-paged_mla_decode.launches = 0
-paged_mla_decode.launches_by_design = dict.fromkeys(DESIGNS, 0)

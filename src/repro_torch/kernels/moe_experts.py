@@ -23,12 +23,10 @@ and sums over j.
 The CUDA source is `csrc/moe_experts.cu` (its header gives the bound and
 the design: two kernels, gate / up and down); `kernels/build.py` compiles
 it with nvcc for sm_90a at first use and loads it with ctypes.
-`moe_experts` takes the plain version, `moe_experts_ref` (a loop over the
-experts with their rows found on the host), only for CPU tensors; on a
-CUDA tensor it launches the kernels or raises; on "meta" tensors it
-returns an empty meta tensor.  Nothing is read on the host and nothing
-synced, so a CUDA graph can capture the call.  `moe_experts.launches`
-counts kernel launches (two a call), `launches_by_design` counts them per
+`moe_experts` takes the launch path of `kernels/launch.py`; its plain
+version, `moe_experts_ref`, is a loop over the experts with their rows
+found on the host.  Nothing is read on the host and nothing synced, so a
+CUDA graph can capture the call.  A call counts two launches, one per
 kernel ("gate_up", "down").  The kernels' names hold no "int8_gemm", and
 their launches go to no other wrapper's counter.
 """
@@ -40,8 +38,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from . import launch
 from .build import KernelBuild, build_library
-from .flash_attention import refuse_autograd
 
 K_STEP = 64                      # csrc/moe_experts.cu: KS (rows a stage)
 PASS_ROWS = 32                   # csrc/moe_experts.cu: NTOK (rows a pass)
@@ -65,12 +63,9 @@ MOE_TOL_DOC = ("against moe_experts_ref: per element 1.02 * 2^-7 * (|ref| "
 @functools.lru_cache(maxsize=None)
 def build() -> KernelBuild:
     """Compile (once per source hash) and load the kernel library."""
-    kb = build_library("moe_experts")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn = kb.lib.moe_experts_launch
-    fn.argtypes = [vp, vp, i32, i32] + [vp] * 8 + [i32] * 4 + [vp]
-    fn.restype = ctypes.c_int
-    return kb
+    return build_library("moe_experts", moe_experts_launch=(
+        [vp, vp, i32, i32] + [vp] * 8 + [i32] * 4 + [vp]))
 
 
 def _routed(expert_ids, n_experts: int):
@@ -189,6 +184,7 @@ def row_chunks(T: int, k: int, E: int) -> int:
     return max(1, min(-(-T // PASS_ROWS), -(-4 * T * k // (E * PASS_ROWS))))
 
 
+@launch.counted(*DESIGNS)
 def moe_experts(x, expert_ids, w_gate, w_up, w_down):
     """x (T, d), expert_ids (T, k), the three INT8 expert leaves -> (T, k,
     d) in x's dtype (see the module docstring).
@@ -198,22 +194,16 @@ def moe_experts(x, expert_ids, w_gate, w_up, w_down):
     launches, gate / up into a (T k, f) bf16 scratch and down.  Forward
     only: raises a RuntimeError while autograd records and x requires
     grad."""
-    refuse_autograd("moe_experts", x)
+    launch.refuse_autograd("moe_experts", x)
     check_experts(x, expert_ids, w_gate, w_up, w_down)
-    dev = x.device
-    if any(t.device != dev for t in (expert_ids, w_gate["q"], w_up["q"],
-                                     w_down["q"])):
-        raise ValueError(f"x, expert_ids and the expert weights must share "
-                         f"a device; got {dev}, {expert_ids.device}, "
-                         f"{w_gate['q'].device}")
+    dev = launch.device("moe_experts", "x, expert_ids and the expert weights",
+                        x, expert_ids, w_gate["q"], w_up["q"], w_down["q"])
     if dev.type == "cpu":
         return moe_experts_ref(x, expert_ids, w_gate, w_up, w_down)
     T, k = expert_ids.shape
     d = x.shape[1]
     if dev.type == "meta":
         return x.new_empty((T, k, d))
-    if dev.type != "cuda":
-        raise ValueError(f"moe_experts runs on cuda (or cpu/meta), got {dev}")
     check_experts_card(x, expert_ids, w_gate, w_up, w_down)
     E, _, f = w_gate["q"].shape
     if E > 65535:
@@ -222,23 +212,10 @@ def moe_experts(x, expert_ids, w_gate, w_up, w_down):
     ids = expert_ids.to(torch.int64).contiguous()
     h = torch.empty((T * k, f), dtype=x.dtype, device=dev)
     out = torch.empty((T, k, d), dtype=x.dtype, device=dev)
-    lib = build().lib
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.moe_experts_launch(
-            x.data_ptr(), ids.data_ptr(), T, k, w_gate["q"].data_ptr(),
-            w_gate["scale"].data_ptr(), w_up["q"].data_ptr(),
-            w_up["scale"].data_ptr(), w_down["q"].data_ptr(),
-            w_down["scale"].data_ptr(), h.data_ptr(), out.data_ptr(), E, d,
-            f, row_chunks(T, k, E), stream)
-    if rc != 0:
-        raise RuntimeError(f"moe_experts kernel launch failed: CUDA error "
-                           f"{rc}")
-    moe_experts.launches += 2
-    for design in DESIGNS:
-        moe_experts.launches_by_design[design] += 1
+    launch.run(moe_experts, dev, build().lib.moe_experts_launch,
+               x.data_ptr(), ids.data_ptr(), T, k, w_gate["q"].data_ptr(),
+               w_gate["scale"].data_ptr(), w_up["q"].data_ptr(),
+               w_up["scale"].data_ptr(), w_down["q"].data_ptr(),
+               w_down["scale"].data_ptr(), h.data_ptr(), out.data_ptr(), E,
+               d, f, row_chunks(T, k, E), designs=DESIGNS)
     return out
-
-
-moe_experts.launches = 0
-moe_experts.launches_by_design = dict.fromkeys(DESIGNS, 0)

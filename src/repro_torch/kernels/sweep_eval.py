@@ -14,9 +14,9 @@ sm_90a at first use, with multiply-add contraction off (`--fmad=false`),
 and loads it with ctypes.  The kernel equals its plain version bit for
 bit, NaN positions included.
 
-`sweep_eval` takes the plain version only for tensors on the CPU; on a
-CUDA tensor it launches the kernel on the current stream or raises —
-there is no fallback.  `sweep_eval.launches` counts kernel launches.
+`sweep_eval` takes the launch path of `kernels/launch.py`; it counts its
+launches but is not in the launch registry (the plan service runs it on
+a thread of its own).
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ from ..core.mapping import PSUM_BYTES
 from ..core.memory import DRAM, RF, SMEM, TEMPORAL_REDUCTION_PJ
 from ..core.vectorized import (FLAT_FIELDS, SWEEP_OUT_FIELDS, evaluate_flat,
                                f32_reciprocal)
+from . import launch
 from .build import KernelBuild, build_library
 
 NVCC_EXTRA = ("--fmad=false",)
@@ -61,12 +62,9 @@ def sweep_consts(dram_eff: float = DRAM_STREAM_EFFICIENCY) -> SweepConsts:
 @functools.lru_cache(maxsize=None)
 def build() -> KernelBuild:
     """Compile (once per source hash) and load the kernel library."""
-    kb = build_library("sweep_eval", NVCC_EXTRA)
-    fn = kb.lib.sweep_eval_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, SweepConsts, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return kb
+    return build_library("sweep_eval", NVCC_EXTRA, sweep_eval_launch=[
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        SweepConsts, ctypes.c_void_p])
 
 
 def kernel_status(device="cuda") -> dict:
@@ -98,6 +96,7 @@ def sweep_eval_ref(rows, order_mode: str = "exact",
     return torch.stack([out[f].to(torch.float32) for f in SWEEP_OUT_FIELDS])
 
 
+@launch.counted("sweep", registered=False)
 def sweep_eval(rows, order_mode: str = "exact",
                dram_eff: float = DRAM_STREAM_EFFICIENCY):
     """(24, B) f32 field matrix -> (11, B) f32 SWEEP_OUT_FIELDS matrix.
@@ -106,28 +105,20 @@ def sweep_eval(rows, order_mode: str = "exact",
     launches the kernel on the current stream or raises."""
     check_order_mode(order_mode)
     _check_rows(rows)
-    dev = rows.device
+    dev = launch.device("sweep_eval", "the rows", rows)
     if dev.type == "cpu":
         return sweep_eval_ref(rows, order_mode, dram_eff)
-    if dev.type != "cuda":
-        raise ValueError(f"sweep_eval runs on cuda (or cpu), got {dev}")
-    if rows.dtype != torch.float32 or not rows.is_contiguous():
-        raise TypeError("sweep_eval wants a contiguous float32 matrix")
     n = rows.shape[1]
     out = torch.empty((len(SWEEP_OUT_FIELDS), n), dtype=torch.float32,
                       device=dev)
+    if dev.type == "meta":
+        return out
+    if rows.dtype != torch.float32 or not rows.is_contiguous():
+        raise TypeError("sweep_eval wants a contiguous float32 matrix")
     if n == 0:
         return out
-    lib = build().lib
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sweep_eval_launch(rows.data_ptr(), out.data_ptr(), n,
-                                   int(order_mode == "greedy"),
-                                   sweep_consts(dram_eff), stream)
-    if rc != 0:
-        raise RuntimeError(f"sweep_eval kernel launch failed: CUDA error {rc}")
-    sweep_eval.launches += 1
+    launch.run(sweep_eval, dev, build().lib.sweep_eval_launch,
+               rows.data_ptr(), out.data_ptr(), n,
+               int(order_mode == "greedy"), sweep_consts(dram_eff),
+               designs=("sweep",))
     return out
-
-
-sweep_eval.launches = 0

@@ -68,7 +68,7 @@ def block_size_error(block_size: int, device, kv_cache_dtype: str) -> str:
     block pool on the card is read by the paged decode kernel, whose
     blocks hold a multiple of PAGED_ROWS rows (other caches keep
     `decode_attend`, which takes any block size)."""
-    from ..kernels.decode_attention import PAGED_ROWS
+    from ..kernels.paged import PAGED_ROWS
     if (torch.device(device).type != "cuda" or kv_cache_dtype != "bfloat16"
             or block_size % PAGED_ROWS == 0):
         return ""

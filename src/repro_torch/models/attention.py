@@ -1,7 +1,10 @@
 """Attention implementations in torch: naive, chunked online-softmax
 ("flash_jnp", the JAX package's pure-jnp flash), block-causal chunking,
-decode over a KV cache, and the `attend` switch that selects one of them
-or the hand-written flash-attention kernel (`impl="pallas"`).
+and the `attend` switch that selects one of them or the hand-written
+flash-attention kernel (`impl="pallas"`).  Decode over a KV cache
+(`decode_attend`) and latent attention (`latent_attend`) are the plain
+versions of the paged decode kernels and live beside them in `kernels/`;
+they are imported here under their names.
 
 Each function has the contract of its namesake in the JAX package's
 `models/attention.py`, less the `unroll` knob of the JAX scans (a Python
@@ -16,33 +19,12 @@ import functools
 
 import torch
 
+from ..kernels import ops as kops
+from ..kernels.decode_attention import (NEG_INF, decode_attend,  # noqa: F401
+                                        gqa_expand as _gqa_expand,
+                                        inv_sqrt_f32 as _scale)
+from ..kernels.mla_decode import latent_attend  # noqa: F401
 from ..sharding.constraints import einsum, is_dtensor, on_local_shards
-
-NEG_INF = -1e30
-
-
-def _gqa_expand(k, n_heads: int):
-    """(b, s, kv, d) -> (b, s, H, d) by repeating kv heads (each kv head
-    n_heads // kv times in a row, as `repeat_interleave` does; written as
-    an expand and a reshape, which DTensor propagates over a sharded
-    sequence dim where its `repeat_interleave` does not)."""
-    b, s, kv, d = k.shape
-    if kv == n_heads:
-        return k
-    return k[:, :, :, None, :].expand(b, s, kv, n_heads // kv, d).reshape(
-        b, s, n_heads, d)
-
-
-@functools.lru_cache(maxsize=None)
-def _scale(d: int) -> float:
-    """1 / sqrt(d) rounded to f32, as a Python float holding that f32
-    value exactly.  It is computed once, on the CPU, so a step captured
-    as a CUDA graph makes no host-to-device copy for it; multiplying an
-    f32 tensor by it gives the same bits as multiplying by the f32
-    tensor (IEEE sqrt and division are correctly rounded on both
-    devices)."""
-    return (1.0 / torch.sqrt(torch.tensor(float(d),
-                                          dtype=torch.float32))).item()
 
 
 def naive_causal(q, k, v, positions_q=None, positions_k=None,
@@ -157,56 +139,8 @@ def attend(q, k, v, impl: str = "flash_jnp", chunk: int = 1024,
     if impl == "naive" or sk % max(chunk, 1) != 0 or sk <= chunk:
         return naive_causal(q, k, v, window=window)
     if impl == "pallas":
-        from ..kernels import ops as kops
         return kops.flash_attention(q, k, v, causal=True, window=window)
     if block_causal:
         return flash_block_causal(q, k, v, q_chunk=q_chunk, kv_chunk=chunk,
                                   window=window)
     return flash_jnp(q, k, v, chunk=chunk, window=window)
-
-
-def decode_attend(q, k_cache, v_cache, cache_len, window: int = 0,
-                  grouped: bool = False):
-    """Single-token decode attention over a (b, S, KV, d) cache.
-
-    cache_len: (b,) valid lengths.  q: (b, 1, H, d).  Linear in S.
-    grouped=True uses grouped-query einsums that never materialize the
-    GQA-expanded cache."""
-    b, _, nh, d = q.shape
-    S, kv = k_cache.shape[1], k_cache.shape[2]
-    scale = _scale(d)
-    pos = torch.arange(S, device=q.device)[None, :]
-    valid = pos < cache_len[:, None]
-    if window:
-        valid &= pos >= (cache_len[:, None] - window)
-    if grouped:
-        rep = nh // kv
-        qg = q.reshape(b, 1, kv, rep, d).float()
-        s = einsum("bqgrd,bsgd->bgrqs", qg, k_cache.float()) * scale
-        s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
-        p = torch.softmax(s, dim=-1)
-        out = einsum("bgrqs,bsgd->bqgrd", p, v_cache.float())
-        return out.reshape(b, 1, nh, d).to(q.dtype)
-    k = _gqa_expand(k_cache, nh)
-    v = _gqa_expand(v_cache, nh)
-    s = einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = einsum("bhqk,bkhd->bqhd", p, v.float())
-    return out.to(q.dtype)
-
-
-def latent_attend(q, rows, cache_len, scale: float, v_dim: int):
-    """Latent (MLA) decode attention: every query head over one shared
-    row per position.  q: (b, H, w); rows: (b, S, w); cache_len (b,):
-    positions < cache_len are valid.  The scores q . row times `scale`
-    in f32, masked with NEG_INF, softmax, then the weighted sum of each
-    row's first `v_dim` columns in f32 -> (b, H, v_dim) in q's dtype; a
-    slot with no valid position gives zeros."""
-    S = rows.shape[1]
-    s = einsum("bhw,bsw->bhs", q.float(), rows.float()) * scale
-    valid = torch.arange(S, device=q.device)[None, :] < cache_len[:, None]
-    p = torch.softmax(torch.where(valid[:, None, :], s, NEG_INF), dim=-1)
-    out = einsum("bhs,bsc->bhc", p, rows[..., :v_dim].float())
-    out = torch.where((cache_len > 0)[:, None, None], out, 0.0)
-    return out.to(q.dtype)

@@ -93,6 +93,8 @@ from ..sharding.constraints import (constrain_qkv, constrain_residual,
                                     index_copy_, is_dtensor, logsumexp,
                                     merge_heads, pick_last, reduce_partial,
                                     replicate_over_model, split_heads)
+from ..kernels import ops as kops
+from ..kernels.paged import paged_view as _paged_view
 from ..quant.lowbit import unpack_int4
 from .attention import (_gqa_expand, _scale, attend, decode_attend,
                         latent_attend, naive_causal)
@@ -477,13 +479,6 @@ def _paged_write(pool, new, pos, block_tables, active):
     return pool
 
 
-def _paged_view(pool, block_tables):
-    """Gather each slot's logical KV strip from the pool:
-    (n_blocks, bs, ...) + (b, max_blocks) -> (b, max_blocks * bs, ...)."""
-    v = pool[block_tables.long()]
-    return v.reshape((v.shape[0], v.shape[1] * v.shape[2]) + v.shape[3:])
-
-
 # --- forward (prefill) and decode --------------------------------------------
 
 def _layer(tree, i: int):
@@ -836,7 +831,6 @@ def _mla_step(ap, layer, h, pos, pvec, lens, cfg: ModelConfig, plan,
         qf = torch.cat([q_lat, q_pe[:, 0]], dim=-1)   # (b, H, row_width)
         sm = _scale(a.qk_head_dim)
         if paged_kernel_fits(layer["kv"], block_tables):
-            from ..kernels import ops as kops
             o = kops.paged_mla_decode(qf, layer["kv"], block_tables, lens,
                                       sm)
         else:
@@ -883,7 +877,6 @@ def _attn_step(ap, layer, h, pos, pvec, lens, cfg: ModelConfig,
             kd, vd = strip["k"], strip["v"]
     with spans.span("attn.core"):
         if kernel:
-            from ..kernels import ops as kops
             o = kops.paged_decode_attention(q, kd, vd, block_tables, lens,
                                             window=cfg.sliding_window)
         else:

@@ -27,12 +27,11 @@ triggers a collection, and destroying a graph while a stream captures
 invalidates that capture (torch's `torch.cuda.graph` no longer collects
 on entry).
 
-The kernels' launch counters (`int8_gemm.launches`, `launches_by_design`,
-`launches_by_format`, the attention and expert kernels' counters) are Python
-integers that a replay does not move.  A `StepGraph` records what its
-capture launched, takes those counts back out (a capture launches
-nothing), and adds them again on every replay, so a replayed step counts
-exactly as the eager step does.
+The kernels' launch counters are Python integers that a replay does not
+move.  A `StepGraph` records what its capture launched in the counters of
+the launch registry (`repro_torch.kernels.launch`), takes those counts
+back out (a capture launches nothing), and adds them again on every
+replay, so a replayed step counts exactly as the eager step does.
 
 With a span recorder armed (`repro_torch.spans`), the first call also
 captures a marked twin: the same step with the span marks in it, in the
@@ -57,44 +56,10 @@ import threading
 import torch
 
 from .. import spans
+from ..kernels import launch
 from ..tree import leaves
 
 capture_lock = threading.Lock()
-
-# kernel wrappers (attributes of repro_torch.kernels) whose counters a
-# replay credits
-COUNTED_KERNELS = ("int8_gemm", "flash_attention", "decode_attention",
-                   "paged_decode_attention", "paged_mla_decode",
-                   "moe_experts")
-
-
-def _wrappers():
-    from .. import kernels
-    return [getattr(kernels, name) for name in COUNTED_KERNELS]
-
-
-def _counter_dicts(wrapper) -> list[dict]:
-    return [wrapper.launches_by_design,
-            getattr(wrapper, "launches_by_format", {})]
-
-
-def _snapshot() -> list:
-    return [(w.launches, [dict(d) for d in _counter_dicts(w)])
-            for w in _wrappers()]
-
-
-def _delta(after: list, before: list) -> list:
-    return [(a - b, [{k: da[k] - db[k] for k in da}
-                     for da, db in zip(dicts_a, dicts_b)])
-            for (a, dicts_a), (b, dicts_b) in zip(after, before)]
-
-
-def _add(delta: list, sign: int = 1) -> None:
-    for w, (n, dicts) in zip(_wrappers(), delta):
-        w.launches += sign * n
-        for counts, d in zip(_counter_dicts(w), dicts):
-            for k, v in d.items():
-                counts[k] += sign * v
 
 
 class StepGraph:
@@ -127,7 +92,7 @@ class StepGraph:
         """Capture one call of `fn` on `static` into a new graph (in the
         memory pool `pool`, or a private one): (graph, out, credit)."""
         graph = torch.cuda.CUDAGraph()
-        before = _snapshot()
+        before = launch.snapshot()
         collecting = gc.isenabled()
         gc.collect()                       # dead graphs go before, not during
         gc.disable()
@@ -136,15 +101,15 @@ class StepGraph:
                 with torch.cuda.graph(graph, pool=pool):
                     out = self.fn(*static)
         except Exception as e:
-            _add(_delta(_snapshot(), before), -1)
+            launch.credit(launch.since(before), sign=-1)
             raise RuntimeError(
                 "CUDA-graph capture of the step failed (the step does not "
                 f"run eagerly instead): {e}") from e
         finally:
             if collecting:
                 gc.enable()
-        credit = _delta(_snapshot(), before)
-        _add(credit, -1)                   # the capture launched nothing
+        credit = launch.since(before)
+        launch.credit(credit, sign=-1)     # the capture launched nothing
         return graph, out, credit
 
     def _capture(self, inputs) -> None:
@@ -189,5 +154,5 @@ class StepGraph:
                 and spans.active():
             graph, out = self.marked, self.marked_out
         graph.replay()
-        _add(self.credit)
+        launch.credit(self.credit)
         return out.clone()

@@ -55,11 +55,8 @@ SLOTS = {name: i for i, name in enumerate(NAMES)}
 def _lib():
     """Compile (once per source hash) and load the mark kernel."""
     from .kernels.build import build_library
-    lib = build_library("span_mark").lib
-    lib.span_mark_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_int, ctypes.c_void_p]
-    lib.span_mark_launch.restype = ctypes.c_int
-    return lib
+    return build_library("span_mark", span_mark_launch=[
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]).lib
 
 
 def mark(acc, last, slot: int, clock=time.perf_counter_ns) -> None:

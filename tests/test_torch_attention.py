@@ -24,6 +24,8 @@ sides compute in f32 and round the output to bf16 once, so an element may
 differ by one bf16 ulp, at most 2**-7 of the largest magnitude).
 """
 import importlib
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -282,22 +284,44 @@ def test_cpu_plain_meta_empty_and_no_launches():
 
 # --- host-side plans of the CUDA kernels -------------------------------------
 
-@pytest.mark.parametrize("n_blocks,S,n_sms,plan", [
-    (32, 32768, 132, (4, 8192)),   # qwen2-7b decode_32k: 128 blocks
-    (12, 4096, 132, (11, 384)),    # 3 x 4 kv heads: 132 // 12 = 11 pieces
-    (2, 300, 132, (5, 64)),        # one 64-position tile per piece
-    (300, 1000, 132, (1, 1024)),   # more blocks than a wave: no split
-    (1, 64, 132, (1, 64)),
-    (4, 32768, 8, (2, 16384))])    # a small card: 8 // 4 pieces
-def test_decode_split_plan(n_blocks, S, n_sms, plan):
-    """`split_plan` against hand-worked values: as many tile-aligned
-    pieces as fit one wave of one block per SM, at most one per tile."""
-    da = importlib.import_module("repro_torch.kernels.decode_attention")
-    assert da.split_plan(n_blocks, S, n_sms) == plan
+@pytest.mark.parametrize("tile,n_blocks,S,n_sms,plan", [
+    (64, 32, 32768, 132, (4, 8192)),   # qwen2-7b decode_32k: 128 blocks
+    (64, 12, 4096, 132, (11, 384)),    # 3 x 4 kv heads: 132 // 12 = 11
+    (64, 2, 300, 132, (5, 64)),        # one 64-position tile per piece
+    (64, 300, 1000, 132, (1, 1024)),   # more blocks than a wave: no split
+    (64, 1, 64, 132, (1, 64)),
+    (64, 4, 32768, 8, (2, 16384)),     # a small card: 8 // 4 pieces
+    (32, 2, 300, 132, (10, 32)),       # MLA's tile: one 32-row tile a piece
+    (32, 128, 4096, 132, (1, 4096)),   # MLA, 128 slots: one wave, no split
+    (32, 8, 2048, 132, (16, 128)),     # MLA, 8 slots: 132 // 8 = 16 pieces
+    (32, 3, 100, 132, (4, 32))])       # a ragged last piece
+def test_decode_split_plan(tile, n_blocks, S, n_sms, plan):
+    """`paged.split_plan`, which both decode kernels and the paged MLA
+    kernel take with their own tile, against hand-worked values: as many
+    tile-aligned pieces as fit one wave of one block per SM, at most one
+    per tile."""
+    from repro_torch.kernels.paged import split_plan
+    assert split_plan(n_blocks, S, n_sms, tile) == plan
     n_splits, split_len = plan
-    assert split_len % da.TILE == 0 and (n_splits - 1) * split_len < S
-    assert n_blocks * n_splits <= max(n_blocks,
-                                      da.BLOCKS_PER_SM * n_sms)
+    assert split_len % tile == 0 and (n_splits - 1) * split_len < S
+    assert n_blocks * n_splits <= max(n_blocks, n_sms)
+
+
+@pytest.mark.parametrize("module,heads,py_heads", [
+    ("decode_attention", "HB_MAX", "HEADS_PER_BLOCK"),
+    ("mla_decode", "HMAX", "MAX_HEADS")])
+def test_split_plan_tiles_are_the_kernels(module, heads, py_heads):
+    """The tile a wrapper plans its splits by, and its most heads a block,
+    are its CUDA source's constants (decode_attention.cu: TK and dk::T,
+    HB_MAX; mla_decode.cu: T, HMAX)."""
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    with open(os.path.join(os.path.dirname(mod.__file__), "csrc",
+                           f"{module}.cu")) as f:
+        src = f.read()
+    consts = re.findall(r"constexpr int (TK|T|HB_MAX|HMAX) = (\d+);", src)
+    tiles = {int(v) for k, v in consts if k in ("TK", "T")}
+    assert tiles == {mod.TILE}
+    assert int(dict(consts)[heads]) == getattr(mod, py_heads)
 
 
 @pytest.mark.parametrize("rep,hb", [(7, 7), (32, 16), (4, 4), (1, 1),
@@ -558,7 +582,7 @@ def test_serve_cli_refuses_blocks_the_kernel_cannot_read():
     than a multiple of 8 rows is refused before anything is built; the
     int8 cache (read by `decode_attend`) and the CPU keep any block
     size."""
-    from repro_torch.kernels.decode_attention import PAGED_ROWS
+    from repro_torch.kernels.paged import PAGED_ROWS
     from repro_torch.launch import serve
     argv = ["--requests", "2", "--block-size", "4"]
     with pytest.raises(SystemExit):

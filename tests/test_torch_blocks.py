@@ -16,7 +16,13 @@ on the CPU.
 * `models.layers.count_params` / `param_bytes` equal to the JAX
   package's on every reduced arch;
 * module-level `core.sweep.cache_info` / `cache_clear` act on the
-  default engine.
+  default engine;
+* the kernels' one launch path (`kernels/launch.py`): the registry holds
+  the six wrappers a replayed CUDA graph credits, with their counters;
+  `snapshot` / `since` / `credit` round-trip a fake capture's counts as
+  `StepGraph` uses them; a launch's return code is checked before any
+  count moves; every wrapper refuses mixed devices and a device it does
+  not run on.
 """
 import math
 import os
@@ -156,3 +162,162 @@ def test_module_level_cache_calls_act_on_default_engine():
     assert info["misses"] > 0
     sweep.cache_clear("cpu")
     assert eng.cache_info()["size"] == 0 and eng.cache_info()["misses"] == 0
+
+
+# --- the kernels' one launch path ------------------------------------------
+
+COUNTED = {"int8_gemm": ("A", "B", "fma"), "flash_attention": ("wgmma", "fma"),
+           "decode_attention": ("mma", "fma"),
+           "paged_decode_attention": ("paged",), "paged_mla_decode": ("mla",),
+           "moe_experts": ("gate_up", "down")}
+
+
+def test_launch_registry_holds_the_counted_wrappers():
+    """The registry is the six wrappers whose counts a replay credits, each
+    the package's attribute with its counters per design (and the GEMM's
+    per weight format); the sweep kernel counts but is not in it."""
+    from repro_torch import kernels
+    from repro_torch.kernels import launch
+    assert sorted(w.__name__ for w in launch.REGISTRY) == sorted(COUNTED)
+    for w in launch.REGISTRY:
+        assert w is getattr(kernels, w.__name__)
+        assert isinstance(w.launches, int)
+        assert tuple(w.launches_by_design) == COUNTED[w.__name__]
+        assert hasattr(w, "launches_by_format") == (w is kernels.int8_gemm)
+    assert tuple(kernels.int8_gemm.launches_by_format) == ("int8", "fp8")
+    assert kernels.sweep_eval not in launch.REGISTRY
+    assert isinstance(kernels.sweep_eval.launches, int)
+
+
+def _fake_card(monkeypatch):
+    """Let `launch.run` reach a launcher on a CPU-only torch: device 0 is
+    current and its stream's handle is 0."""
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0,
+                        raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 0,
+                        raising=False)
+    return torch.device("cuda", 0)
+
+
+def test_snapshot_credit_round_trip_a_capture(monkeypatch):
+    """A step's launches counted during a fake capture are taken back out
+    (a capture launches nothing) and credited on each replay, as
+    `StepGraph` does: two replays count what two eager steps count."""
+    from repro_torch.kernels import (int8_gemm, launch, moe_experts,
+                                     paged_mla_decode)
+    card = _fake_card(monkeypatch)
+
+    def step():
+        for _ in range(3):
+            launch.run(int8_gemm, card, lambda *a: 0, designs=("B",),
+                       formats=("fp8",))
+        launch.run(moe_experts, card, lambda *a: 0, designs=("gate_up",
+                                                               "down"))
+        launch.run(paged_mla_decode, card, lambda *a: 0, designs=("mla",))
+    start = launch.snapshot()
+    fp8, moe = int8_gemm.launches_by_format["fp8"], moe_experts.launches
+    try:
+        step()
+        step()
+        eager = launch.snapshot()
+        assert int8_gemm.launches_by_format["fp8"] == fp8 + 6
+        assert moe_experts.launches == moe + 4
+        launch.credit(launch.since(start), sign=-1)
+        assert launch.snapshot() == start
+        before = launch.snapshot()
+        step()                                   # the capture
+        credit = launch.since(before)
+        # int8_gemm: 3 launches, 3 on B, 3 fp8; moe: 2, one a design; mla 2
+        assert sum(credit) == 9 + 4 + 2 and min(credit) == 0
+        launch.credit(credit, sign=-1)
+        assert launch.snapshot() == before
+        launch.credit(credit)                    # two replays
+        launch.credit(credit)
+        assert launch.snapshot() == eager
+    finally:
+        launch.credit(launch.since(start), sign=-1)
+
+
+@pytest.mark.parametrize("rc,note", [(700, False), (10001, True)])
+def test_launch_return_code_raises_before_counting(monkeypatch, rc, note):
+    from repro_torch.kernels import flash_attention, launch
+    card = _fake_card(monkeypatch)
+    before = launch.snapshot()
+    with pytest.raises(RuntimeError, match=f"CUDA error {rc}") as err:
+        launch.run(flash_attention, card, lambda *a: rc, 1, 2,
+                   designs=("wgmma",))
+    assert ("CUresult" in str(err.value)) == note
+    assert launch.snapshot() == before
+
+
+class _Elsewhere(torch.Tensor):
+    """A tensor's metadata on a device no wrapper runs on."""
+
+    @staticmethod
+    def __new__(cls, t):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, t.shape, dtype=t.dtype, strides=t.stride(), device="xla")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise NotImplementedError(f"{func} on a device of metadata only")
+
+
+def _wrapper_call(name):
+    """(wrapper, arguments) of a valid call on small CPU tensors."""
+    from repro_torch import kernels
+    gen = torch.Generator().manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen)
+
+    def q8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen,
+                             dtype=torch.int8)
+    tables = torch.arange(6, dtype=torch.int32).view(2, 3)
+    lengths = torch.tensor([5, 17])
+    args = {
+        "int8_gemm": (r(4, 8), q8(8, 16), r(16)),
+        "flash_attention": (r(2, 16, 16), r(2, 16, 16), r(2, 16, 16)),
+        "decode_attention": (r(2, 1, 16), r(2, 32, 16), r(2, 32, 16), 5),
+        "paged_decode_attention": (r(2, 1, 4, 16), r(6, 8, 2, 16),
+                                   r(6, 8, 2, 16), tables, lengths),
+        "paged_mla_decode": (r(2, 4, 16), r(6, 8, 16), tables, lengths, 0.25,
+                             8),
+        "moe_experts": (r(3, 16), torch.tensor([[0, 1], [2, 3], [1, 2]]),
+                        {"q": q8(4, 16, 8), "scale": r(4, 8)},
+                        {"q": q8(4, 16, 8), "scale": r(4, 8)},
+                        {"q": q8(4, 8, 16), "scale": r(4, 16)}),
+        "sweep_eval": (r(24, 5),),
+    }[name]
+    return getattr(kernels, name), args
+
+
+def _moved(args, to, which=None):
+    """`args` with tensor number `which` (every one if None, dict leaves
+    included, in order) passed through `to`."""
+    seen = [-1]
+
+    def one(t):
+        if not torch.is_tensor(t):
+            return t
+        seen[0] += 1
+        return to(t) if which in (None, seen[0]) else t
+    return tuple({k: one(v) for k, v in a.items()} if isinstance(a, dict)
+                 else one(a) for a in args)
+
+
+@pytest.mark.parametrize("name", sorted(COUNTED) + ["sweep_eval"])
+def test_every_wrapper_refuses_devices_it_does_not_run_on(name):
+    """Each of the seven wrappers goes through `launch.device`: tensors
+    split over two devices raise "share a device" (the sweep kernel takes
+    one tensor), and a device other than cuda, cpu and meta raises."""
+    wrapper, args = _wrapper_call(name)
+    with torch.no_grad():
+        wrapper(*args)                            # the call is valid
+        if name != "sweep_eval":
+            with pytest.raises(ValueError, match="share a device"):
+                wrapper(*_moved(args, lambda t: t.to("meta"), which=1))
+        with pytest.raises(ValueError,
+                           match=rf"{name} runs on cuda \(or cpu/meta\)"):
+            wrapper(*_moved(args, _Elsewhere))

@@ -521,12 +521,13 @@ def test_decode_kernel_matches_plain(cuda, case, dtype):
 def test_decode_kernel_length_at_a_split_boundary(cuda):
     """qwen2-7b's decode_32k shape with `length` on the boundary of the
     wrapper's splits, one past it and one short of it."""
+    from repro_torch.kernels.paged import split_plan
     da = importlib.import_module("repro_torch.kernels.decode_attention")
     b, S, h, kv, d = 8, 32768, 28, 4, 128
     q, kc, vc = _attn_inputs([(b, 1, h, d), (b, S, kv, d), (b, S, kv, d)],
                              torch.bfloat16, cuda, seed=5)
     n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    n_splits, split_len = da.split_plan(b * kv, S, n_sms)
+    n_splits, split_len = split_plan(b * kv, S, n_sms, da.TILE)
     assert n_splits > 1
     for length in (split_len - 1, split_len, split_len + 1,
                    (n_splits - 1) * split_len + 1):

@@ -127,6 +127,47 @@ def test_port_imports_neither_jax_nor_repro():
     assert not bad, bad
 
 
+def _layers_imported(node, layer: str) -> list[str]:
+    """The packages of repro_torch that an import statement in a module
+    of package `layer` names ("kernels", "models", ...)."""
+    if isinstance(node, ast.Import):
+        return [a.name.split(".")[1] for a in node.names
+                if a.name.startswith("repro_torch.")]
+    if node.level == 0:
+        mod = node.module or ""
+        return [mod.split(".")[1]] if mod.startswith("repro_torch.") else []
+    if node.level == 1:
+        return [layer]
+    return ([node.module.split(".")[0]] if node.module
+            else [a.name for a in node.names])
+
+
+def test_kernel_and_model_layers_import_one_way():
+    """No module under kernels/ imports models or serving (the plain
+    versions the kernels' CPU paths run live beside them), and no module
+    under models/ imports kernels inside a function (the models import
+    the kernels at module top, no cycle to dodge)."""
+    bad = []
+    for layer in ("kernels", "models"):
+        pkg = os.path.join(ROOT, "src", "repro_torch", layer)
+        for f in sorted(os.listdir(pkg)):
+            if not f.endswith(".py"):
+                continue
+            with open(os.path.join(pkg, f)) as fh:
+                tree = ast.parse(fh.read(), f)
+            for node in ast.walk(tree):
+                if isinstance(node, (ast.Import, ast.ImportFrom)):
+                    used = set(_layers_imported(node, layer))
+                    if layer == "kernels" and used & {"models", "serving"}:
+                        bad.append(f"kernels/{f}:{node.lineno}")
+                if layer == "models" and isinstance(
+                        node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    bad += [f"models/{f}:{n.lineno}" for n in ast.walk(node)
+                            if isinstance(n, (ast.Import, ast.ImportFrom))
+                            and "kernels" in _layers_imported(n, layer)]
+    assert not bad, bad
+
+
 def test_no_silent_cpu_fallback():
     """Without `device=` the entry points mean the card: on a CPU-only
     torch they raise instead of running on the CPU."""
